@@ -1,0 +1,104 @@
+"""Build and load the port's CUDA kernels (``csrc/*.cu``).
+
+All sources are compiled by ``nvcc`` for ``sm_90a`` into one shared library
+with a plain C interface, at first use, into ``build/kernels/`` beside the
+package (git-ignored), and loaded with ``ctypes``.  The library name carries
+a hash of the sources, so an edited kernel is rebuilt and a stale library is
+never loaded.  Nothing here runs at import time: CPU-only installs import
+every module of the port without a compiler.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+# C signatures of csrc/*.cu: every function returns cudaGetLastError()
+SIGNATURES = {
+    # slot, S, starts, counts, num_tiles, tiles_x, out, stream
+    "artdeco_composite_fwd": (_P, _L, _P, _P, _I, _I, _P, _P),
+    # slot, S, starts, counts, num_tiles, tiles_x, g_out, grad, stream
+    "artdeco_composite_bwd": (_P, _L, _P, _P, _I, _I, _P, _P, _P),
+}
+
+
+def _nvcc() -> str:
+    for cand in (
+        os.environ.get("CUDA_HOME", "") and os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"),
+        shutil.which("nvcc"),
+        "/usr/local/cuda/bin/nvcc",
+    ):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def library_path() -> Path:
+    h = hashlib.sha1()
+    for p in _sources() + sorted(CSRC.glob("*.cuh")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"libartdeco_kernels_{h.hexdigest()[:12]}.so"
+
+
+def build() -> tuple[Path, str]:
+    """Compile the library if it is missing; returns (path, nvcc output)."""
+    out = library_path()
+    if out.exists():
+        return out, ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    # compile to a private name, then rename: concurrent builders never
+    # load a half-written library
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
+    try:
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}"
+            )
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return out, res.stdout + res.stderr
+
+
+@functools.lru_cache(maxsize=None)
+def load() -> ctypes.CDLL:
+    """The kernel library, built on first use and cached per process."""
+    path, _ = build()
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise when a launch returned a CUDA error code."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with error {err}")
