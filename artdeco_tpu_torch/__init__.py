@@ -2,9 +2,10 @@
 
 The file layout mirrors ``artdeco_tpu/`` file for file, so each module names
 the JAX module it is checked against.  This package imports ``torch`` and
-never ``jax``.  It reuses two host-only modules of the JAX package, which
-import no JAX either, through ``mapper/config.py`` (``MapperConfig``) and
-``dataio/dataset.py`` (``SyntheticDataset``).
+never ``jax``, nor the JAX package: its host-side inputs
+(``mapper/config.py`` ``MapperConfig``, ``dataio/dataset.py``
+``SyntheticDataset``) are its own copies, held to the originals by the
+parity tests.
 
 Ported so far: the online mapper (``mapper/``), its rasterizer
 (``ops/splat/``) with the tile compositor as hand-written CUDA kernels

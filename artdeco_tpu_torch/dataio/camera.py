@@ -1,0 +1,69 @@
+"""Pinhole camera geometry of the port's datasets.
+
+Port of ``artdeco_tpu/dataio/camera.py`` for cameras without lens
+distortion, in numpy alone (no OpenCV): the dual SLAM/map resolutions and
+their intrinsics.
+
+* SLAM stream: long edge resized to ``target_size_slam``, centre-cropped
+  to multiples of 16, with K_slam adjusted.  Only the geometry is ported;
+  the port's mapper takes its pointmaps at this resolution.
+* map stream: at the original resolution (no downsampling), with K_map.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+
+def optimal_new_camera_matrix(K: np.ndarray, width: int, height: int) -> np.ndarray:
+    """``cv2.getOptimalNewCameraMatrix(K, 0, (w, h), alpha=0, (w, h),
+    centerPrincipalPoint=True)`` for zero distortion: the principal point
+    moves to the pixel centre of the image and the focal scales so that the
+    image corners stay inside it."""
+    cx0, cy0 = K[0, 2], K[1, 2]
+    cx, cy = (width - 1) * 0.5, (height - 1) * 0.5
+    s = max(cx / cx0, cy / cy0, cx / (width - 1 - cx0), cy / (height - 1 - cy0))
+    M = np.asarray(K, np.float64).copy()
+    M[0, 0] *= s
+    M[1, 1] *= s
+    M[0, 2], M[1, 2] = cx, cy
+    return M
+
+
+def slam_geometry(width: int, height: int, size: int):
+    """The SLAM stream's crop of a (height, width) image: long edge resized
+    to ``size``, then centre-cropped to multiples of 16.  Returns
+    (H_slam, W_slam, scale_w, scale_h, half_crop_w, half_crop_h)."""
+    s = max(height, width)
+    rw, rh = int(round(width * size / s)), int(round(height * size / s))
+    halfw, halfh = ((2 * (rw // 2)) // 16) * 8, ((2 * (rh // 2)) // 16) * 8
+    return (2 * halfh, 2 * halfw, width / rw, height / rh,
+            (rw - 2 * halfw) / 2, (rh - 2 * halfh) / 2)
+
+
+class PinholeCamera:
+    """Dual-resolution camera transform without lens distortion."""
+
+    def __init__(self, target_size_slam: int, W_original: int, H_original: int,
+                 calib_parameter):
+        fx, fy, cx, cy = calib_parameter  # pinhole only: no distortion terms
+        K = np.asarray([[fx, 0, cx], [0, fy, cy], [0, 0, 1]], np.float64)
+        self.K_best = optimal_new_camera_matrix(K, W_original, H_original).astype(np.float32)
+
+        (self.H_slam, self.W_slam, sw, sh, hcw, hch) = slam_geometry(
+            W_original, H_original, target_size_slam)
+        K_slam = self.K_best.copy()
+        K_slam[0, 0] /= sw
+        K_slam[1, 1] /= sh
+        K_slam[0, 2] = K_slam[0, 2] / sw - hcw
+        K_slam[1, 2] = K_slam[1, 2] / sh - hch
+        self.K_slam = K_slam.astype(np.float32)
+
+        self.K_map = self.K_best.copy()
+        self.H_map, self.W_map = H_original, W_original
+
+    def to_map(self, img: np.ndarray) -> np.ndarray:
+        """(H, W, 3) uint8/float -> (3, H_map, W_map) f32 in [0, 1]."""
+        if img.dtype == np.uint8:
+            img = img.astype(np.float32) / 255.0
+        return img.astype(np.float32).transpose(2, 0, 1)

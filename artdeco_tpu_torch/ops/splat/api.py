@@ -2,9 +2,11 @@
 
 Port of ``artdeco_tpu/ops/splat/api.py``: project (torch autograd) -> SH
 colors -> stable depth sort -> tile binning -> tile compositing (K1/K2
-behind a ``torch.autograd.Function``).  The slot gather is plain autograd
-``index_select``, whose backward scatter-adds slot gradients back onto the
-Gaussians, as JAX's gather-VJP does.
+behind a ``torch.autograd.Function``).  The slot gather is a
+``torch.autograd.Function`` too: its backward sums each Gaussian's slot
+gradients back onto it, as JAX's gather-VJP does, but in a fixed order
+through the per-Gaussian slot table of the binning, so it is
+deterministic and needs no atomics.
 
 The JAX package's ``compact_budget`` (visible-set compaction before the
 sort) is left out: it only changes cost, and the image is identical
@@ -19,6 +21,34 @@ import torch
 
 from artdeco_tpu_torch.ops.splat import binning, composite, project, sh
 from artdeco_tpu_torch.ops.splat.binning import TILE
+
+
+class SlotGather(torch.autograd.Function):
+    """slot_data[:, s] = packed[slot_gauss[s]] where slot_valid[s], else 0.
+
+    Backward: each Gaussian sums the gradients of its at most kx*ky slots,
+    read through ``gauss_slots`` (N, kx*ky; -1 for none) in slot-table
+    order.  A scatter-add over ``slot_gauss`` instead would add atomically
+    in no fixed order, making the mapper's training nondeterministic on the
+    card, and would add a zero for every padding slot into row 0."""
+
+    @staticmethod
+    def forward(ctx, packed, slot_gauss, slot_valid, gauss_slots):
+        ctx.save_for_backward(gauss_slots)
+        ctx.n_slots = slot_gauss.shape[0]
+        gathered = packed.index_select(0, slot_gauss)
+        return torch.where(slot_valid[:, None], gathered, torch.zeros_like(gathered)).T
+
+    @staticmethod
+    def backward(ctx, g):  # g: (16, S)
+        (gauss_slots,) = ctx.saved_tensors
+        n, k = gauss_slots.shape
+        # row S is the zero row that absent pairs (-1) read
+        rows = torch.cat([g.T, g.new_zeros(1, g.shape[0])])
+        idx = torch.where(gauss_slots >= 0, gauss_slots,
+                          torch.full_like(gauss_slots, ctx.n_slots))
+        per_pair = rows.index_select(0, idx.reshape(-1)).reshape(n, k, g.shape[0])
+        return per_pair.sum(1), None, None, None
 
 
 class RasterMeta(NamedTuple):
@@ -103,6 +133,11 @@ def pack_slots(
     bins = binning.build_tile_bins(
         proj.means2d.detach()[order], radii.detach()[order], tiles_x, tiles_y, kx, ky
     )
+    # binning indexes Gaussians in depth order: map both tables back to the
+    # caller's order, so the gather reads the unsorted rows directly
+    slot_gauss = order[bins.slot_gauss]
+    gauss_slots = torch.empty_like(bins.gauss_slots)
+    gauss_slots[order] = bins.gauss_slots
 
     packed = torch.cat(
         [
@@ -114,16 +149,10 @@ def pack_slots(
             means.new_zeros(n, composite.C_MAX - n_ch),
         ],
         dim=-1,
-    )[order]  # (N, 16), depth-sorted
+    )  # (N, 16)
     # gather into CHUNK-aligned padded slots, transposed (16, S); padding
-    # slots are zero and composite to nothing.  index_select's backward is
-    # an index_add (atomic scatter-add onto the Gaussians); the backward of
-    # advanced indexing sorts the indices and serialises the duplicates
-    # (every padding slot points at row 0), measured at 25 ms a training
-    # iteration on the card
-    gathered = packed.index_select(0, bins.slot_gauss).T
-    slot_data = torch.where(bins.slot_valid[None, :], gathered,
-                            torch.zeros_like(gathered))
+    # slots are zero and composite to nothing
+    slot_data = SlotGather.apply(packed, slot_gauss, bins.slot_valid, gauss_slots)
     meta = RasterMeta(radii=radii, means2d=proj.means2d, depths=proj.depths,
                       num_pairs=bins.num_pairs)
     return PackedSlots(slot_data, bins.pad_starts, bins.pad_counts, width, height,

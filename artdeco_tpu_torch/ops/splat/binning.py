@@ -32,6 +32,7 @@ class TileBins(NamedTuple):
     pad_counts: torch.Tensor   # (T,) int32 padded run lengths
     tile_counts: torch.Tensor  # (T,) int32 true pair counts
     num_pairs: torch.Tensor    # () int32 total valid pairs
+    gauss_slots: torch.Tensor  # (N, kx*ky) int64 the slots of each gaussian, -1 for none
 
 
 def num_slots(n: int, num_tiles: int, kx: int = 4, ky: int = 4) -> int:
@@ -102,7 +103,11 @@ def build_tile_bins(
     slot_gauss[dst] = pair_gauss_s
     slot_valid = torch.zeros(s + 1, dtype=torch.bool, device=dev)
     slot_valid[dst] = True
+    # the inverse map: pair k of gaussian g (pair index g*kx*ky + k before
+    # the sort) sits in slot gauss_slots[g, k]
+    gauss_slots = torch.empty_like(dst)
+    gauss_slots[perm] = torch.where(dst < s, dst, torch.full_like(dst, -1))
     return TileBins(
         slot_gauss[:s], slot_valid[:s], pad_starts, pad_counts, tile_counts,
-        num_pairs,
+        num_pairs, gauss_slots.reshape(n, kx * ky),
     )

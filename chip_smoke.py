@@ -16,8 +16,12 @@ defaults, and checks it:
    The kernels' launch counters must show the stream went through them,
    the loss must stay finite, the first keyframe's PSNR must rise by at
    least 3 dB after its densify, and the test-frame PSNR must be finite.
-4. kernel goldens and timings at the training shape (256x192, 192 tiles)
-   on the slot data of the largest scene of the stream.
+4. kernel goldens and timings at the training shape (256x192, 192 tiles):
+   on the slot data of the largest scene of the stream, and on a random
+   scene of 10^5 Gaussians, the size of a real scene.
+5. profile: one more 20-iteration burst under torch.profiler; prints the
+   window, the device's busy time and idle share, the kernel count, the
+   kernels that take the most device time, and the peak device memory.
 
 Prints one line per phase, then a JSON line of the kernels and, last,
 ``{"ok": true, "device": {...}}``.  Any failed check raises: the exit code
@@ -39,7 +43,8 @@ SEED = 0
 WIDTH, HEIGHT, N_FRAMES, TEST_HOLD = 512, 384, 16, 8
 KEY_ITERS, COMMON_ITERS = 20, 10
 N_TIMED = 20
-CONFIG_OVERRIDES: dict = {}  # MapperConfig fields; empty: the published widths
+N_BIG = 100_000    # Gaussians of the realistic-size golden
+N_PROFILED = 20    # iterations of the profiled burst
 
 
 def check(ok: bool, what: str) -> None:
@@ -67,7 +72,10 @@ def cuda_ms(fn, n=N_TIMED):
 
 
 def random_slots(device, seed=1, n=300, width=64, height=48):
-    """Slot data of a random Gaussian scene, packed as the renderer packs it."""
+    """Slot data of a random Gaussian scene (SH degree 3, depths 1.5-3),
+    packed as the renderer packs it.  Its footprints give about 7.8
+    (tile, Gaussian) pairs per Gaussian at 256x192, as the mapper's scenes
+    on the card do (5-8)."""
     import torch
     from artdeco_tpu_torch.ops.splat import api
 
@@ -77,12 +85,12 @@ def random_slots(device, seed=1, n=300, width=64, height=48):
     quats = torch.randn(n, 4, generator=g)
     scales = torch.exp(-4 + 1.5 * u(n, 3))
     opac = 0.2 + 0.75 * u(n)
-    colors = torch.randn(n, 4, 3, generator=g) * 0.3
+    colors = torch.randn(n, 16, 3, generator=g) * 0.3
     K = torch.tensor([[0.9 * width, 0, width / 2], [0, 0.9 * width, height / 2],
                       [0, 0, 1.0]])
     args = [x.to(device) for x in (means, quats, scales, opac, colors, torch.eye(4), K)]
     with torch.no_grad():
-        return api.pack_slots(*args, width, height, sh_degree=1, eps2d=0.01)
+        return api.pack_slots(*args, width, height, sh_degree=3, eps2d=0.01)
 
 
 def golden(p, timed: bool):
@@ -93,7 +101,8 @@ def golden(p, timed: bool):
     agree to 1e-4 absolute and depth to 1e-3 relative.  The backward sums
     each slot's gradient over 256 pixels in a fixed shuffle tree, the plain
     version in matmul order: 1e-3 relative to each gradient group's largest
-    entry (the gather VJP's atomics in the renderer add no error here)."""
+    entry.  The renderer's gather VJP (no atomics, fixed order) is not part
+    of this comparison."""
     import torch
     from artdeco_tpu_torch.ops.splat import composite as C
 
@@ -129,6 +138,37 @@ def golden(p, timed: bool):
             bwd_plain_ms=cuda_ms(lambda: C.composite_bwd_plain(*args, g_out)),
         )
     return res
+
+
+def profile_burst(sm, n_iters: int) -> str:
+    """One important-frame burst of ``n_iters`` iterations under
+    torch.profiler: the window (host clock), the device's busy time (sum of
+    its kernels, memcpys and memsets, one stream) and idle share, the count
+    of device kernels, the kernels with the most device time, and the peak
+    device memory.  The profiler adds host time to every launch, so the
+    window is longer than the same burst unprofiled."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sm.optimization_loop(n_iters, True)
+        torch.cuda.synchronize()
+        window_ms = 1e3 * (time.perf_counter() - t0)
+    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
+    kernels = sum(e.count for e in dev)
+    top = sorted(dev, key=lambda e: -e.self_device_time_total)[:6]
+    tops = "; ".join(f"{e.key[:48]} {100 * e.self_device_time_total / 1e3 / busy_ms:.1f}% "
+                     f"x{e.count}" for e in top) if busy_ms > 0 else "not measured"
+    idle = f"{1 - busy_ms / window_ms:.3f}" if busy_ms > 0 else "not measured"
+    return (f"{n_iters} iterations, window {window_ms:.1f} ms, device busy "
+            f"{busy_ms:.1f} ms, idle share {idle}, {kernels} device kernels "
+            f"({kernels / n_iters:.0f}/iteration), peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; top: {tops}")
 
 
 def main() -> int:
@@ -180,7 +220,7 @@ def main() -> int:
     ds = SyntheticDataset(types.SimpleNamespace(test_hold=TEST_HOLD, max_size_slam=WIDTH),
                           n_frames=N_FRAMES, width=WIDTH, height=HEIGHT)
     check((ds.W_map, ds.H_map) == (WIDTH, HEIGHT), "map resolution")
-    cfg = MapperConfig()._replace(**CONFIG_OVERRIDES)
+    cfg = MapperConfig()
     stage = MapperStage(ds, cfg, device=dev, seed=SEED, num_key_iterations=KEY_ITERS,
                         num_common_iterations=COMMON_ITERS)
     sm = stage.scene_model
@@ -260,14 +300,24 @@ def main() -> int:
           flush=True)
 
     # -- 4. kernel goldens + timings at the training shape -----------------
+    def golden_line(what, p, n_gauss):
+        r = golden(p, timed=True)
+        print(f"phase 4 goldens, {what} ({p.width}x{p.height}, {p.slot_data.shape[1]} "
+              f"slots, {int(p.meta.num_pairs)} pairs, {n_gauss} Gaussians): K1 err "
+              f"{r['fwd_err']:.3g} {r['fwd_ms']:.4f} ms (plain {r['fwd_plain_ms']:.3f} ms); "
+              f"K2 err {r['bwd_err']:.3g} {r['bwd_ms']:.4f} ms "
+              f"(plain {r['bwd_plain_ms']:.3f} ms)", flush=True)
+        return r
+
     p = biggest[1]
     check((p.width, p.height) == (WIDTH >> lvl, HEIGHT >> lvl), "training shape")
-    big = golden(p, timed=True)
-    print(f"phase 4 goldens ({p.width}x{p.height}, {p.slot_data.shape[1]} slots, "
-          f"{int(p.meta.num_pairs)} pairs, {biggest[0]} Gaussians): K1 err "
-          f"{big['fwd_err']:.3g} {big['fwd_ms']:.4f} ms (plain {big['fwd_plain_ms']:.3f} ms); "
-          f"K2 err {big['bwd_err']:.3g} {big['bwd_ms']:.4f} ms "
-          f"(plain {big['bwd_plain_ms']:.3f} ms)", flush=True)
+    big = golden_line("stream scene", p, biggest[0])
+    del p, biggest
+    golden_line("random scene", random_slots(dev, seed=2, n=N_BIG, width=WIDTH >> lvl,
+                                             height=HEIGHT >> lvl), N_BIG)
+
+    # -- 5. profile of a training burst ----------------------------------
+    print(f"phase 5 profile: {profile_burst(sm, N_PROFILED)}", flush=True)
 
     src = "artdeco_tpu_torch/csrc/composite.cu"
     print(json.dumps({"kernels": [

@@ -21,7 +21,7 @@ from artdeco_tpu.mapper import gaussians as JG
 from artdeco_tpu.mapper import keyframe as JKF
 from artdeco_tpu.mapper import losses as jlo
 from artdeco_tpu.mapper import scene_model as JS
-from artdeco_tpu.mapper.config import MapperConfig
+from artdeco_tpu.mapper.config import MapperConfig as JMapperConfig
 from artdeco_tpu.ops import adam as jadam
 from artdeco_tpu.ops import ssim as jssim
 from artdeco_tpu_torch.mapper import clustering as tclu
@@ -29,17 +29,20 @@ from artdeco_tpu_torch.mapper import gaussians as TG
 from artdeco_tpu_torch.mapper import keyframe as TKF
 from artdeco_tpu_torch.mapper import losses as tlo
 from artdeco_tpu_torch.mapper import scene_model as TS
+from artdeco_tpu_torch.dataio.dataset import SyntheticDataset
+from artdeco_tpu_torch.mapper.config import MapperConfig
 from artdeco_tpu_torch.mapper.state_io import scene_state_from_numpy
 from artdeco_tpu_torch.ops import adam as tadam
 from artdeco_tpu_torch.ops import ssim as tssim
 from torch_parity import CPU, jax_scene_state, n, t, torch_threads  # noqa: F401
 
 W, H = 64, 48
-CFG = MapperConfig(
+SIZES = dict(
     capacity=4096, cluster_capacity=1024, voxel_table_size=4096, new_budget=1024,
     keyframe_capacity=64, sh_degree=1, local_feat_dim=8, global_feat_dim=8,
     pyr_levels=2, gs_add_ratio=1.0, init_proba_scaler=4.0,
 )
+CFG, JCFG = MapperConfig(**SIZES), JMapperConfig(**SIZES)  # the port's, the JAX package's
 
 
 def test_ssim_matches_jax():
@@ -252,7 +255,6 @@ def test_clustering_matches_jax():
 
 
 def _plane_keyframe():
-    from artdeco_tpu.dataio.dataset import SyntheticDataset
     from artdeco_tpu_torch.runtime.system import exact_mapper_messages
 
     ds = SyntheticDataset(types.SimpleNamespace(test_hold=0, max_size_slam=64),
@@ -270,7 +272,7 @@ def test_train_iter_matches_jax(is_important):
     (1 - b1) * g after one step from zero) to 1e-4 of each group's largest
     entry, and updated parameters to atol 2e-5 / rtol 1e-4."""
     ds, m, img = _plane_keyframe()
-    jsm = JS.SceneModel(W, H, ds.K_map, CFG, seed=0)
+    jsm = JS.SceneModel(W, H, ds.K_map, JCFG, seed=0)
     jkf = JKF.make_device_keyframe(index=0, global_frame_id=0, image=img,
                                    point_map=m["point_map"], point_conf=m["point_conf"],
                                    is_test=False, is_slam_keyframe=True,
@@ -299,7 +301,7 @@ def test_train_iter_matches_jax(is_important):
     out = JS.optimization_step_core(
         jsm.slab, jsm.opt, jsm.gfeat, jsm.mlp, jsm.mlp_opt, jsm.mlp_lr, jsm.pool,
         jnp.asarray(0), gt, mono, jnp.asarray(Kl), jnp.asarray(bg), jnp.asarray(False),
-        w, h, lvl, is_important, CFG, train_len=jsm._train_len)
+        w, h, lvl, is_important, JCFG, train_len=jsm._train_len)
     tkf = TKF.make_device_keyframe(0, 0, img, m["point_map"], m["point_conf"], False,
                                    True, CPU, pyr_levels=CFG.pyr_levels)
     np.testing.assert_array_equal(n(tkf.image_pyr[lvl]), n(gt))

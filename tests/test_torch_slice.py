@@ -27,11 +27,13 @@ import types
 import jax.numpy as jnp
 import numpy as np
 
-from artdeco_tpu.dataio.dataset import SyntheticDataset
+from artdeco_tpu.dataio.dataset import SyntheticDataset as JSyntheticDataset
 from artdeco_tpu.mapper import keyframe as JKF
-from artdeco_tpu.mapper.config import MapperConfig
+from artdeco_tpu.mapper.config import MapperConfig as JMapperConfig
 from artdeco_tpu.mapper.scene_model import SceneModel as JaxSceneModel
 from artdeco_tpu.runtime.system import _se3_w2c_matrix_np
+from artdeco_tpu_torch.dataio.dataset import SyntheticDataset
+from artdeco_tpu_torch.mapper.config import MapperConfig
 from artdeco_tpu_torch.mapper.state_io import scene_state_from_numpy
 from artdeco_tpu_torch.runtime.system import MapperStage, exact_mapper_messages
 from torch_parity import CPU, JaxKeyChain, jax_scene_state, n, torch_threads  # noqa: F401
@@ -39,11 +41,12 @@ from torch_parity import CPU, JaxKeyChain, jax_scene_state, n, torch_threads  # 
 W, H = 64, 48
 SEED = 1
 N_ITERS = 6
-CFG = MapperConfig(
+SIZES = dict(
     capacity=4096, cluster_capacity=1024, voxel_table_size=4096, new_budget=1024,
     keyframe_capacity=64, sh_degree=1, local_feat_dim=8, global_feat_dim=8,
     pyr_levels=2, gs_add_ratio=1.0, init_proba_scaler=4.0,
 )
+CFG, JCFG = MapperConfig(**SIZES), JMapperConfig(**SIZES)  # the port's, the JAX package's
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -64,9 +67,10 @@ def _slab_close(tslab, jslab, max_share, atol=2e-5, rtol=1e-4, cap=None):
 
 
 def test_mapper_slice_matches_jax():
-    ds = SyntheticDataset(types.SimpleNamespace(test_hold=2, max_size_slam=W),
-                          n_frames=3, width=W, height=H)
-    jsm = JaxSceneModel(W, H, ds.K_map, CFG, seed=SEED)
+    args = types.SimpleNamespace(test_hold=2, max_size_slam=W)
+    ds = SyntheticDataset(args, n_frames=3, width=W, height=H)
+    jds = JSyntheticDataset(args, n_frames=3, width=W, height=H)
+    jsm = JaxSceneModel(W, H, jds.K_map, JCFG, seed=SEED)
     stage = MapperStage(ds, CFG, device=CPU, seed=SEED, num_key_iterations=N_ITERS,
                         noise=JaxKeyChain(SEED))
     stage.scene_model.load_state(scene_state_from_numpy(jax_scene_state(jsm), CPU))
@@ -74,8 +78,9 @@ def test_mapper_slice_matches_jax():
 
     for m in exact_mapper_messages(ds, important_every=1):
         i = m["frame_id"]
-        # the JAX mapper, as System._handle_mapper_msg drives it
-        img = ds.transform.to_map(ds[i][0])
+        # the JAX mapper, as System._handle_mapper_msg drives it, on the
+        # JAX package's own dataset
+        img = jds.transform.to_map(jds[i][0])
         jkf = JKF.make_device_keyframe(
             index=i, global_frame_id=i, image=img, point_map=m["point_map"],
             point_conf=m["point_conf"], is_test=m["is_test"],
@@ -115,14 +120,17 @@ def test_mapper_slice_matches_jax():
 
 
 def test_port_imports_no_jax():
-    """Every module of the port imports without JAX (the package and its
-    kernels run on machines where the JAX package is not installed)."""
+    """Every module of the port (which covers what chip_smoke.py's main()
+    imports) and chip_smoke.py itself import neither JAX nor the JAX
+    package: the port and its kernels run on machines that have neither."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import artdeco_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, 'artdeco_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'flax'))\n"
+        "import chip_smoke\n"
+        "bad = sorted(k for k in sys.modules\n"
+        "             if k.split('.')[0] in ('jax', 'jaxlib', 'flax', 'artdeco_tpu'))\n"
         "assert not bad, bad\n"
         "print('ok', len([k for k in sys.modules if k.startswith('artdeco_tpu_torch')]))\n"
     )

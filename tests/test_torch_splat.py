@@ -144,6 +144,34 @@ def test_binning_matches_jax():
     assert int(tb.num_pairs) == int(jb.num_pairs)
     assert tb.slot_gauss.shape[0] == tbin.num_slots(m2d.shape[0], tx * ty)
     assert (n(tb.slot_gauss) == 10).sum() <= 16
+    # gauss_slots inverts slot_gauss: every valid slot once, under its gaussian
+    gs = n(tb.gauss_slots)
+    assert gs.shape == (m2d.shape[0], 16)
+    g_of, s_of = np.nonzero(gs >= 0)
+    slots = gs[g_of, s_of]
+    assert len(slots) == int(tb.num_pairs) == valid.sum()
+    np.testing.assert_array_equal(np.sort(slots), np.nonzero(valid)[0])
+    np.testing.assert_array_equal(n(tb.slot_gauss)[slots], g_of)
+
+
+def test_slot_gather_backward_is_the_scatter_add():
+    """The gather's fixed-order backward equals autograd's scatter-add
+    (index_select's backward) over the same slots, to float32 rounding of
+    sums of at most 16 terms."""
+    m2d, _, radii, _ = _projected_sorted(3)
+    tb = tbin.build_tile_bins(t(m2d), t(radii), -(-W // 16), -(-H // 16))
+    rng = np.random.default_rng(11)
+    packed = t(rng.normal(size=(m2d.shape[0], 16)).astype(np.float32))
+    g = t(rng.normal(size=(16, tb.slot_gauss.shape[0])).astype(np.float32))
+    a = packed.clone().requires_grad_()
+    out = tapi.SlotGather.apply(a, tb.slot_gauss, tb.slot_valid, tb.gauss_slots)
+    out.backward(g)
+    b = packed.clone().requires_grad_()
+    ref = torch.where(tb.slot_valid[None], b.index_select(0, tb.slot_gauss).T, 0.0)
+    ref.backward(g)
+    np.testing.assert_array_equal(n(out), n(ref))
+    np.testing.assert_allclose(n(a.grad), n(b.grad), rtol=0, atol=1e-5)
+    assert (n(a.grad)[n(tb.gauss_slots).max(1) < 0] == 0).all()
 
 
 def _slot_data(seed):
