@@ -5,14 +5,19 @@ distortion, in numpy alone (no OpenCV): the dual SLAM/map resolutions and
 their intrinsics.
 
 * SLAM stream: long edge resized to ``target_size_slam``, centre-cropped
-  to multiples of 16, with K_slam adjusted.  Only the geometry is ported;
-  the port's mapper takes its pointmaps at this resolution.
+  to multiples of 16, with K_slam adjusted; ``to_slam`` gives the image in
+  [-1, 1].  Where the long edge already has the target size the image is
+  only cropped, as OpenCV's resize to the same size copies it; other
+  sizes are resampled with PyTorch (area when shrinking, bicubic when
+  growing), which is close to OpenCV's but not bit-equal.
 * map stream: at the original resolution (no downsampling), with K_map.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
+import torch.nn.functional as F
 
 
 def optimal_new_camera_matrix(K: np.ndarray, width: int, height: int) -> np.ndarray:
@@ -61,6 +66,27 @@ class PinholeCamera:
 
         self.K_map = self.K_best.copy()
         self.H_map, self.W_map = H_original, W_original
+        self.target_size = target_size_slam
+
+    def to_slam(self, img: np.ndarray) -> np.ndarray:
+        """(H, W, 3) uint8/float -> (3, H_slam, W_slam) f32 in [-1, 1]."""
+        if img.dtype == np.uint8:
+            img = img.astype(np.float32) / 255.0
+        # the JAX package's round trip through uint8, truncation included
+        img_u8 = np.clip(img * 255.0, 0, 255).astype(np.uint8)
+        h, w = img_u8.shape[:2]
+        s = max(h, w)
+        nw, nh = int(round(w * self.target_size / s)), int(round(h * self.target_size / s))
+        if (nh, nw) != (h, w):
+            x = torch.from_numpy(img_u8).permute(2, 0, 1)[None].float()
+            mode = dict(mode="area") if s > self.target_size else dict(
+                mode="bicubic", align_corners=False)
+            x = F.interpolate(x, size=(nh, nw), **mode)
+            img_u8 = x[0].permute(1, 2, 0).round().clamp(0, 255).to(torch.uint8).numpy()
+        cx, cy = nw // 2, nh // 2
+        halfw, halfh = ((2 * cx) // 16) * 8, ((2 * cy) // 16) * 8
+        out = img_u8[cy - halfh:cy + halfh, cx - halfw:cx + halfw]
+        return out.astype(np.float32).transpose(2, 0, 1) / 255.0 * 2.0 - 1.0
 
     def to_map(self, img: np.ndarray) -> np.ndarray:
         """(H, W, 3) uint8/float -> (3, H_map, W_map) f32 in [0, 1]."""

@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``).
 
-All sources are compiled by ``nvcc`` for ``sm_90a`` into one shared library
-with a plain C interface, at first use, into ``build/kernels/`` beside the
-package (git-ignored), and loaded with ``ctypes``.  The library name carries
+Each source is compiled by its own ``nvcc`` for ``sm_90a``, all of them at
+once, and the objects are linked into one shared library with a plain C
+interface, at first use, into ``build/kernels/`` beside the package
+(git-ignored), and loaded with ``ctypes``.  The library name carries
 a hash of the sources, so an edited kernel is rebuilt and a stale library is
 never loaded.  Nothing here runs at import time: CPU-only installs import
 every module of the port without a compiler.
@@ -23,7 +24,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -35,6 +36,10 @@ SIGNATURES = {
     "artdeco_composite_fwd": (_P, _L, _P, _P, _I, _I, _P, _P),
     # slot, S, starts, counts, num_tiles, tiles_x, g_out, grad, stream
     "artdeco_composite_bwd": (_P, _L, _P, _P, _I, _I, _P, _P, _P),
+    # D11, D21, p_in, valid, n, h, w, radius, d_max, d_min, init_score,
+    # p_out, score_out, stream
+    "artdeco_refine": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float,
+                       _P, _P, _P),
 }
 
 
@@ -68,22 +73,30 @@ def build() -> tuple[Path, str]:
     if out.exists():
         return out, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # compile to a private name, then rename: concurrent builders never
-    # load a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-    try:
-        res = subprocess.run(cmd, capture_output=True, text=True)
+    nvcc = _nvcc()
+    # objects and the library go to private names, then the library is
+    # renamed: a concurrent build never loads a half-written one
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        procs = []
+        for src in _sources():
+            obj = os.path.join(tmp, src.stem + ".o")
+            procs.append((obj, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        log, failed = [], []
+        for obj, p in procs:
+            log.append(p.communicate()[0])
+            if p.returncode != 0:
+                failed.append(obj)
+        if failed:
+            raise RuntimeError(f"nvcc failed for {failed}:\n" + "\n".join(log))
+        lib = os.path.join(tmp, "lib.so")
+        res = subprocess.run([nvcc, "-shared", "-o", lib, *(o for o, _ in procs)],
+                             capture_output=True, text=True)
         if res.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}"
-            )
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return out, res.stdout + res.stderr
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
+        os.replace(lib, out)
+    return out, "\n".join(log) + res.stdout + res.stderr
 
 
 @functools.lru_cache(maxsize=None)

@@ -3,25 +3,37 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path, the online mapper (``MapperStage``), over a
-16-frame 512x384 synthetic plane stream at the full-width ``MapperConfig``
-defaults, and checks it:
+Drives the port's two main paths at full width and checks them: the
+online mapper (``MapperStage``) over a 16-frame 512x384 synthetic plane
+stream at the ``MapperConfig`` defaults, and the tracking frontend
+(``Frontend`` + ``OracleRunner``) over a 120-frame 512x384 stream with
+``config/base.yaml`` as it is.
 
 1. device: a CUDA device is required; prints ``nvidia-smi``'s name and
    power limit; builds the CUDA kernels from ``artdeco_tpu_torch/csrc``.
 2. kernel goldens: the tile compositor's kernels (K1 forward, K2 backward)
    against their plain PyTorch versions on a small random case.
-3. the slice: every second frame is important (densify + 20 iterations),
-   the others common (10 iterations), frame 8 is a held-out test frame.
-   The kernels' launch counters must show the stream went through them,
-   the loss must stay finite, the first keyframe's PSNR must rise by at
-   least 3 dB after its densify, and the test-frame PSNR must be finite.
+3. the mapper slice: every second frame is important (densify + 20
+   iterations), the others common (10 iterations), frame 8 is a held-out
+   test frame.  The kernels' launch counters must show the stream went
+   through them, the loss must stay finite, the first keyframe's PSNR
+   must rise by at least 3 dB after its densify, and the test-frame PSNR
+   must be finite.
 4. kernel goldens and timings at the training shape (256x192, 192 tiles):
    on the slot data of the largest scene of the stream, and on a random
    scene of 10^5 Gaussians, the size of a real scene.
 5. profile: one more 20-iteration burst under torch.profiler; prints the
    window, the device's busy time and idle share, the kernel count, the
    kernels that take the most device time, and the peak device memory.
+6. K3 goldens and timings: the refine window-argmax kernel against its
+   plain version on a small random case and at the stream's shape
+   (384x512, 24 channels, radius 4, dilation 5, the oracle's descriptors
+   and the matcher's own initial positions and validity); times both.
+7. the tracking slice: 120 frames, 4.1 px of motion each; K3's launches
+   must equal the matches made, no frame may be lost, at least two
+   keyframes, ATE RMSE < 0.03 m against ground truth; prints ms per
+   tracked frame, the split between matching and ``track_step``, and a
+   profile of a few tracked frames.
 
 Prints one line per phase, then a JSON line of the kernels and, last,
 ``{"ok": true, "device": {...}}``.  Any failed check raises: the exit code
@@ -45,6 +57,9 @@ KEY_ITERS, COMMON_ITERS = 20, 10
 N_TIMED = 20
 N_BIG = 100_000    # Gaussians of the realistic-size golden
 N_PROFILED = 20    # iterations of the profiled burst
+TRACK_W, TRACK_H, TRACK_FRAMES = 512, 384, 120
+K3_RADIUS, K3_DILATION = 4, 5
+N_PROFILED_FRAMES = 5
 
 
 def check(ok: bool, what: str) -> None:
@@ -140,13 +155,13 @@ def golden(p, timed: bool):
     return res
 
 
-def profile_burst(sm, n_iters: int) -> str:
-    """One important-frame burst of ``n_iters`` iterations under
-    torch.profiler: the window (host clock), the device's busy time (sum of
-    its kernels, memcpys and memsets, one stream) and idle share, the count
-    of device kernels, the kernels with the most device time, and the peak
-    device memory.  The profiler adds host time to every launch, so the
-    window is longer than the same burst unprofiled."""
+def profile_window(fn, n_steps: int, what: str) -> str:
+    """``fn()`` (``n_steps`` steps of ``what``) under torch.profiler: the
+    window (host clock), the device's busy time (sum of its kernels,
+    memcpys and memsets, one stream) and idle share, the count of device
+    kernels, the kernels with the most device time, and the peak device
+    memory.  The profiler adds host time to every launch, so the window is
+    longer than the same work unprofiled."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -155,7 +170,7 @@ def profile_burst(sm, n_iters: int) -> str:
     torch.cuda.reset_peak_memory_stats()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        sm.optimization_loop(n_iters, True)
+        fn()
         torch.cuda.synchronize()
         window_ms = 1e3 * (time.perf_counter() - t0)
     dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
@@ -165,10 +180,36 @@ def profile_burst(sm, n_iters: int) -> str:
     tops = "; ".join(f"{e.key[:48]} {100 * e.self_device_time_total / 1e3 / busy_ms:.1f}% "
                      f"x{e.count}" for e in top) if busy_ms > 0 else "not measured"
     idle = f"{1 - busy_ms / window_ms:.3f}" if busy_ms > 0 else "not measured"
-    return (f"{n_iters} iterations, window {window_ms:.1f} ms, device busy "
+    return (f"{n_steps} {what}, window {window_ms:.1f} ms, device busy "
             f"{busy_ms:.1f} ms, idle share {idle}, {kernels} device kernels "
-            f"({kernels / n_iters:.0f}/iteration), peak memory "
+            f"({kernels / n_steps:.0f}/{what.rstrip('s')}), peak memory "
             f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; top: {tops}")
+
+
+def k3_golden(D11b, D21b, p, valid, timed: bool):
+    """K3 against its plain version: positions equal on >= 99.99 % of the
+    queries, and wherever they differ the two picks' running maxima within
+    1e-5 (only the order of a 24-term f32 sum could separate them; both
+    sum in channel order, so they are expected equal).  Returns the share
+    of equal positions, the max score difference and, if timed, both
+    times (CUDA events, median of 20)."""
+    import torch
+    from artdeco_tpu_torch.ops import refine_dense as RD
+
+    args = (D11b, D21b, p, valid, K3_RADIUS, K3_DILATION)
+    pk, sk = RD.window_argmax(*args)
+    pp, sp = RD.window_argmax_plain(*args, 1, RD.FLT_MIN)
+    torch.cuda.synchronize()
+    differ = (pk != pp).any(-1)
+    same = 1.0 - differ.float().mean().item()
+    err = (sk - sp).abs().max().item()
+    check(same >= 0.9999, f"K3 positions equal on {same:.6f} < 99.99 % of queries")
+    check(bool(((sk - sp).abs()[differ] <= 1e-5).all()), "K3 disagreeing picks score apart")
+    res = dict(same=same, err=err, n=p.shape[0], n_valid=int(valid.sum()))
+    if timed:
+        res.update(ms=cuda_ms(lambda: RD.window_argmax(*args)),
+                   plain_ms=cuda_ms(lambda: RD.window_argmax_plain(*args, 1, RD.FLT_MIN)))
+    return res
 
 
 def main() -> int:
@@ -185,6 +226,13 @@ def main() -> int:
         from artdeco_tpu_torch.ops.splat import api
         from artdeco_tpu_torch.ops.splat import composite as C
         from artdeco_tpu_torch.runtime.system import MapperStage, exact_mapper_messages
+        from artdeco_tpu_torch.eval.trajectory import evaluate_trajectory
+        from artdeco_tpu_torch.models.oracle import OracleRunner
+        from artdeco_tpu_torch.ops import matching as M
+        from artdeco_tpu_torch.ops import refine_dense as RD
+        from artdeco_tpu_torch.utils.config import load_config
+        from artdeco_tpu_torch.vslam.frontend import Frontend
+        from artdeco_tpu_torch.vslam.keyframes import KeyframeStore
     except ImportError as e:
         print(f"chip_smoke: needs the repository's packages and torch: {e}",
               file=sys.stderr)
@@ -317,7 +365,90 @@ def main() -> int:
                                              height=HEIGHT >> lvl), N_BIG)
 
     # -- 5. profile of a training burst ----------------------------------
-    print(f"phase 5 profile: {profile_burst(sm, N_PROFILED)}", flush=True)
+    print(f"phase 5 profile: "
+          f"{profile_window(lambda: sm.optimization_loop(N_PROFILED, True), N_PROFILED, 'iterations')}",
+          flush=True)
+
+    # -- 6. K3 goldens + timings ---------------------------------------------
+    tds = SyntheticDataset(types.SimpleNamespace(test_hold=-1, max_size_slam=TRACK_W),
+                           n_frames=TRACK_FRAMES, width=TRACK_W, height=TRACK_H)
+    check((tds.W_slam, tds.H_slam) == (TRACK_W, TRACK_H), "SLAM resolution")
+    tcfg = load_config(os.path.join(ROOT, "config", "base.yaml"))
+    mcfg = tcfg["matching"]
+    check((mcfg["radius"], mcfg["dilation_max"]) == (K3_RADIUS, K3_DILATION), "matching config")
+    runner = OracleRunner((tds.H_slam, tds.W_slam), tds.K_slam, mcfg, device=dev)
+    t0 = time.time()
+    for i in range(len(tds)):
+        T = np.ones(8, np.float32)
+        T[:7] = tds.Twc_gt[i]
+        runner.register(tds.transform.to_slam(tds[i][0]), i, T)
+    reg_s = time.time() - t0
+
+    g = torch.Generator().manual_seed(SEED)
+    n_small, hs, ws = 48 * 64, 48, 64
+    small_k3 = k3_golden(torch.randn(hs, ws, 24, generator=g).to(dev, torch.bfloat16),
+                         torch.randn(n_small, 24, generator=g).to(dev, torch.bfloat16),
+                         torch.stack([torch.randint(0, ws, (n_small,), generator=g),
+                                      torch.randint(0, hs, (n_small,), generator=g)], -1)
+                         .to(dev, torch.int32),
+                         (torch.rand(n_small, generator=g) > 0.2).to(dev), timed=False)
+    # the first tracked frame's refine inputs: frame 1 against keyframe 0
+    h, w = tds.H_slam, tds.W_slam
+    X11 = runner._dev(1)[0].reshape(1, h, w, 3)
+    X21 = runner._cross_dev(0, 1).reshape(1, h, w, 3)
+    p1, valid = M.project_matches(X11, X21, None, max_iter=int(mcfg["max_iter"]),
+                                  lambda_init=float(mcfg["lambda_init"]),
+                                  cost_thresh=float(mcfg["convergence_thresh"]),
+                                  dist_thresh=float(mcfg["dist_thresh"]))
+    k3 = k3_golden(runner._dev(1)[1].reshape(h, w, -1).to(torch.bfloat16),
+                   runner._dev(0)[1].to(torch.bfloat16), p1[0].contiguous(), valid[0],
+                   timed=True)
+    print(f"phase 6 K3 goldens: random 48x64 positions equal {small_k3['same']:.6f}, max "
+          f"score err {small_k3['err']:.3g}; stream shape {h}x{w} f24 r{K3_RADIUS} "
+          f"d{K3_DILATION} ({k3['n_valid']}/{k3['n']} valid queries) positions equal "
+          f"{k3['same']:.6f}, max score err {k3['err']:.3g}, K3 {k3['ms']:.4f} ms "
+          f"(plain {k3['plain_ms']:.3f} ms)", flush=True)
+
+    # -- 7. the tracking slice -------------------------------------------------
+    store = KeyframeStore(h, w, tds.K_slam, buffer=64, device=dev)
+    fe = Frontend(types.SimpleNamespace(), tcfg, tds, store, runner, device=dev)
+    fe.tracker.sync_timing = True       # the match/step split below is device time
+    frames = [tds[i] for i in range(len(tds))]
+    torch.cuda.synchronize()
+    RD.window_argmax.launches = 0
+    frame_ms = []
+    for img, info in frames:
+        t0 = time.perf_counter()
+        fe.process_frame(img, info)
+        torch.cuda.synchronize()
+        frame_ms.append(1e3 * (time.perf_counter() - t0))
+    k3_launches = RD.window_argmax.launches
+    n_kf = len(store)
+    est, gt = fe.estimated_trajectory(), np.asarray(fe.frames_Twc_gt)
+    ate = evaluate_trajectory("", "unused.json", est, gt, max_dt=0.05)["APE"]["rmse"]
+    check(k3_launches == len(frames) - 1, f"K3 launches {k3_launches} != "
+          f"{len(frames) - 1} matches")
+    check(fe.lost_number == 0, f"{fe.lost_number} frames lost")
+    check(n_kf >= 2, f"{n_kf} keyframes")
+    check(ate < 0.03, f"ATE RMSE {ate} m")
+    check(runner.d2h_lookups == 0, f"{runner.d2h_lookups} frame lookups pulled an image")
+    tm = {k: 1e3 * v[0] / max(v[1], 1) for k, v in fe.tracker.timers.items()}
+    print(f"phase 7 tracking slice: {len(frames)} frames {w}x{h} (oracle registered in "
+          f"{reg_s:.1f} s); K3 launches {k3_launches}; lost {fe.lost_number}; keyframes "
+          f"{n_kf} at frames {store.dataset_idx[:n_kf].tolist()}; ATE RMSE {ate:.5f} m over "
+          f"{len(est)} frames; {statistics.median(frame_ms[1:]):.2f} ms per tracked frame "
+          f"(median; mean {statistics.mean(frame_ms[1:]):.2f}); match {tm['trk.match']:.2f} ms, "
+          f"track_step {tm['trk.step']:.2f} ms (means, device-synchronised)", flush=True)
+
+    more = [tds[i] for i in range(len(tds) - N_PROFILED_FRAMES, len(tds))]
+    fe.tracker.sync_timing = False
+
+    def track_more():
+        for img, info in more:
+            fe.process_frame(img, info)
+
+    print(f"phase 7 profile: {profile_window(track_more, N_PROFILED_FRAMES, 'frames')}",
+          flush=True)
 
     src = "artdeco_tpu_torch/csrc/composite.cu"
     print(json.dumps({"kernels": [
@@ -329,6 +460,10 @@ def main() -> int:
          "replaces": "artdeco_tpu/ops/splat/composite.py:152",
          "launches": launches["bwd"], "max_abs_err": big["bwd_err"],
          "ms": big["bwd_ms"], "plain_ms": big["bwd_plain_ms"]},
+        {"name": "window_argmax", "route": "cuda", "source": "artdeco_tpu_torch/csrc/refine.cu",
+         "replaces": "artdeco_tpu/ops/refine_pallas.py:30",
+         "launches": k3_launches, "max_abs_err": k3["err"],
+         "ms": k3["ms"], "plain_ms": k3["plain_ms"]},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -119,24 +119,37 @@ def test_mapper_slice_matches_jax():
                                atol=1e-3)
 
 
+PORT_MODULES = (   # the mapper slice's and the tracking slice's modules
+    "mapper.scene_model", "runtime.system", "ops.splat.composite", "kernels",
+    "geometry.lie", "geometry.projection", "geometry.robust", "geometry.uncertainty",
+    "ops.matching", "ops.refine_dense", "models.oracle", "vslam.frame", "vslam.keyframes",
+    "vslam.tracker", "vslam.frontend", "vslam.state_io", "utils.config", "dataio.tum_io",
+    "eval.trajectory",
+)
+
+
 def test_port_imports_no_jax():
-    """Every module of the port (which covers what chip_smoke.py's main()
-    imports) and chip_smoke.py itself import neither JAX nor the JAX
-    package: the port and its kernels run on machines that have neither."""
+    """Every module of the port, chip_smoke.py, and everything chip_smoke's
+    main() imports before it finds no CUDA device (it must then exit with
+    2) import neither JAX nor the JAX package: the port and its kernels run
+    on machines that have neither."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import artdeco_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, 'artdeco_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
+        "assert chip_smoke.main() == 2\n"
+        f"missing = [m for m in {PORT_MODULES!r} if 'artdeco_tpu_torch.' + m not in sys.modules]\n"
+        "assert not missing, missing\n"
         "bad = sorted(k for k in sys.modules\n"
         "             if k.split('.')[0] in ('jax', 'jaxlib', 'flax', 'artdeco_tpu'))\n"
         "assert not bad, bad\n"
         "print('ok', len([k for k in sys.modules if k.startswith('artdeco_tpu_torch')]))\n"
     )
-    env = dict(os.environ, PYTHONPATH=REPO)
+    env = dict(os.environ, PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES="")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.startswith("ok"), res.stdout
-    assert int(res.stdout.split()[1]) >= 15
+    assert int(res.stdout.split()[1]) >= 35

@@ -82,3 +82,26 @@ class JaxKeyChain:
             key = self.k2
         self.calls += 1
         return t(jax.random.uniform(key, shape))
+
+
+def jax_frontend_state(fe) -> dict:
+    """A JAX ``Frontend``'s state as the dict of numpy arrays that
+    ``artdeco_tpu_torch.vslam.state_io.frontend_state_from_numpy`` takes."""
+    a = np.asarray
+    ks, tr = fe.keyframes, fe.tracker
+    k = len(ks)
+    emb = tr.last_embedding
+    return dict(
+        keyframes=dict(
+            n_size=k, dataset_idx=ks.dataset_idx[:k].copy(), timestamp=ks.timestamp[:k].copy(),
+            T_WC=ks.T_WC[:k].copy(), img=[a(ks._img[i]) for i in range(k)],
+            X=[a(ks._X[i]) for i in range(k)], C=[a(ks._C[i]) for i in range(k)],
+            N=[a(ks._N[i]) for i in range(k)],
+            embeddings={i: (a(f), a(p)) for i, (f, p) in ks._embeddings.items()}),
+        tracker=dict(idx_f2k=None if tr.idx_f2k is None else a(tr.idx_f2k),
+                     last_dist=tr.last_dist, K_slam=a(tr.K_slam), emb_kf_idx=tr._emb_kf_idx,
+                     last_embedding=None if emb is None else (a(emb[0]), a(emb[1]))),
+        frontend=dict(last_T_WC=a(fe.last_T_WC), frame_id=fe.frame_id,
+                      lost_number=fe.lost_number,
+                      frames_info=[(f, ts, i, a(T)) for f, ts, i, T in fe.frames_info]),
+    )
