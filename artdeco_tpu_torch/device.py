@@ -1,8 +1,8 @@
 """Device selection for the port's main path.
 
-The mapper runs on a CUDA device.  There is no silent CPU fallback: code
-that wants the CPU (the parity tests) passes ``torch.device("cpu")``
-explicitly.
+The entry points run on a CUDA device unless the caller passes another.
+There is no silent CPU fallback: code that wants the CPU (the parity
+tests) passes ``torch.device("cpu")`` explicitly.
 """
 
 from __future__ import annotations
@@ -18,3 +18,9 @@ def require_cuda() -> torch.device:
             "(pass torch.device('cpu') explicitly to run on the CPU)"
         )
     return torch.device("cuda", torch.cuda.current_device())
+
+
+def resolve(device=None) -> torch.device:
+    """``device`` as a ``torch.device``; None means the CUDA device
+    (``require_cuda``, which raises when there is none)."""
+    return require_cuda() if device is None else torch.device(device)

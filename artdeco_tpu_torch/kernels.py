@@ -32,10 +32,11 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 # C signatures of csrc/*.cu: every function returns cudaGetLastError()
 SIGNATURES = {
-    # slot, S, starts, counts, num_tiles, tiles_x, out, stream
-    "artdeco_composite_fwd": (_P, _L, _P, _P, _I, _I, _P, _P),
-    # slot, S, starts, counts, num_tiles, tiles_x, g_out, grad, stream
-    "artdeco_composite_bwd": (_P, _L, _P, _P, _I, _I, _P, _P, _P),
+    # slot, S, starts, counts, num_tiles, tiles_x, out, stop, stream
+    "artdeco_composite_fwd": (_P, _L, _P, _P, _I, _I, _P, _P, _P),
+    # slot, S, starts, counts, stop, num_tiles, tiles_x, g_out, ckpt, grad,
+    # stream
+    "artdeco_composite_bwd": (_P, _L, _P, _P, _P, _I, _I, _P, _P, _P, _P),
     # D11, D21, p_in, valid, n, h, w, radius, d_max, d_min, init_score,
     # p_out, score_out, stream
     "artdeco_refine": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float,

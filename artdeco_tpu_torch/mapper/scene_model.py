@@ -30,6 +30,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from artdeco_tpu_torch.device import resolve
 from artdeco_tpu_torch.mapper.config import MapperConfig
 from artdeco_tpu_torch.mapper import clustering, gaussians as G, keyframe as KF, losses
 from artdeco_tpu_torch.ops import adam
@@ -458,10 +459,10 @@ class SceneModel:
     render_from_id, evaluate, on one ``device``."""
 
     def __init__(self, width: int, height: int, K, cfg: MapperConfig = MapperConfig(),
-                 *, device, seed: int = 0, noise: Optional[Uniforms] = None):
+                 *, device=None, seed: int = 0, noise: Optional[Uniforms] = None):
         self.width = width
         self.height = height
-        self.device = torch.device(device)
+        self.device = resolve(device)
         self.K = torch.as_tensor(np.asarray(K, np.float32), device=self.device)
         self.f = float(np.asarray(K, np.float32)[0, 0])
         self.cfg = cfg

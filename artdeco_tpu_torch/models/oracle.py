@@ -24,6 +24,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from artdeco_tpu_torch.device import resolve
 from artdeco_tpu_torch.geometry import lie
 from artdeco_tpu_torch.ops import matching
 
@@ -40,13 +41,13 @@ class OracleRunner:
     """Drop-in for the MASt3R runner over a plane scene with known poses."""
 
     def __init__(self, hw: Tuple[int, int], K: np.ndarray, match_cfg: dict,
-                 z_plane: float = 2.0, conf: float = 5.0, *, device):
+                 z_plane: float = 2.0, conf: float = 5.0, *, device=None):
         self.h, self.w = hw
         self.K = np.asarray(K, np.float32)
         self.match_cfg = dict(match_cfg)
         self.z_plane = z_plane
         self.conf_value = conf
-        self.device = torch.device(device)
+        self.device = resolve(device)
         self._by_hash: Dict[bytes, int] = {}
         self._poses: Dict[int, np.ndarray] = {}
         self._pm_cache: Dict[int, np.ndarray] = {}

@@ -6,20 +6,27 @@ become hand-written CUDA kernels for Hopper (``csrc/composite.cu``):
 * K1 ``composite_fwd`` replaces ``_fwd_kernel`` (``tile_composite`` /
   ``_fwd_impl``): front-to-back compositing of each 16x16 tile's
   depth-sorted slots, one block per tile, one thread per pixel, with the
-  tile-wide early-out voted once per 128-slot chunk.
+  tile-wide early-out voted once per 128-slot chunk.  It also returns each
+  tile's stop chunk (the number of chunks it composited).
 * K2 ``composite_bwd`` replaces ``_bwd_kernel`` (``_bwd_rule``): the
-  two-pass recompute backward, each slot's gradients reduced over the tile's
-  pixels inside the block (no atomics; deterministic).
+  recompute backward, split at chunk boundaries into per-chunk summaries,
+  a scan per tile into checkpoints, and pass B per chunk from its
+  checkpoint; each slot's gradients are reduced over the tile's pixels
+  inside one block (no atomics; deterministic).  It takes the forward's
+  stop chunks instead of voting again.
 
 Each wrapper launches its kernel for CUDA tensors and counts the launch in
 ``.launches``; it runs the plain PyTorch version beside it only for CPU
 tensors.  The plain versions (vectorised over tiles, looping over 128-slot
-chunks with the same early-out rule) are the reference the CUDA kernels
-are compared with on the card.
+chunks with the same early-out rule and, for K2, the same decomposition)
+are the reference the CUDA kernels are compared with on the card.
 
 Slot matrix layout (16, S), as in the JAX package:
   [0] mean_x  [1] mean_y  [2] conic_a  [3] conic_b  [4] conic_c
   [5] opacity [6..7] pad  [8..15] channels (e.g. r, g, b, depth)
+Tile t owns the run ``[pad_starts[t], pad_starts[t] + pad_counts[t])``;
+runs are disjoint and CHUNK-aligned, as ``binning.build_tile_bins`` lays
+them out.
 """
 
 from __future__ import annotations
@@ -95,18 +102,22 @@ def _check_inputs(slot_data, pad_starts, pad_counts, tiles_x, tiles_y):
 # ---------------------------------------------------------------------------
 
 def composite_fwd_plain(slot_data, pad_starts, pad_counts, tiles_x, tiles_y):
-    """Plain PyTorch K1: (16, S) slots -> (T, PIX, 8) tile images."""
+    """Plain PyTorch K1: (16, S) slots -> (T, PIX, 8) tile images and the
+    stop chunks (T,) int32, the number of chunks each tile composited
+    before its early-out."""
     num_tiles = tiles_x * tiles_y
     dev = slot_data.device
     px, py = _pix_coords(num_tiles, tiles_x, dev)
     nchunks = pad_counts.long() // CHUNK
     carry = torch.zeros(num_tiles, PIX, 1, device=dev)      # log T
     accum = torch.zeros(num_tiles, PIX, C_MAX, device=dev)
+    stop = torch.zeros(num_tiles, dtype=torch.int32, device=dev)
     max_chunks = int(nchunks.max()) if num_tiles else 0
     for ci in range(max_chunks):
         live = (ci < nchunks) & (torch.amax(carry, dim=(1, 2)) > LOG_EPS)
         if not bool(live.any()):
             break
+        stop += live
         d, _ = _gather_chunk(slot_data, pad_starts, ci, live)
         alpha, _, _, _ = _chunk_alpha(d, px, py)
         alpha = alpha * live[:, None, None]
@@ -117,12 +128,14 @@ def composite_fwd_plain(slot_data, pad_starts, pad_counts, tiles_x, tiles_y):
         accum = accum + w @ colors
         carry = carry + torch.sum(s, dim=-1, keepdim=True)
     alpha_img = 1.0 - torch.exp(carry)
-    return torch.cat([accum[..., :C_MAX - 1], alpha_img], dim=-1)
+    return torch.cat([accum[..., :C_MAX - 1], alpha_img], dim=-1), stop
 
 
 def composite_fwd(slot_data, pad_starts, pad_counts, tiles_x, tiles_y):
     """K1: launches the CUDA kernel for CUDA tensors (counted in
     ``composite_fwd.launches``); the plain version for CPU tensors.
+    Returns the tile images (T, PIX, 8) and the stop chunks (T,) int32,
+    which ``composite_bwd`` takes.
 
     Replaces the Pallas ``_fwd_kernel`` (``artdeco_tpu/ops/splat/
     composite.py``).  On the H100 it is bound by each pixel's exp and FMAs
@@ -137,15 +150,16 @@ def composite_fwd(slot_data, pad_starts, pad_counts, tiles_x, tiles_y):
     num_tiles = tiles_x * tiles_y
     slot_data = slot_data.contiguous()
     out = torch.empty(num_tiles, PIX, C_MAX, device=slot_data.device)
+    stop = torch.empty(num_tiles, dtype=torch.int32, device=slot_data.device)
     lib = kernels.load()
     err = lib.artdeco_composite_fwd(
         slot_data.data_ptr(), slot_data.shape[1], pad_starts.data_ptr(),
-        pad_counts.data_ptr(), num_tiles, tiles_x, out.data_ptr(),
+        pad_counts.data_ptr(), num_tiles, tiles_x, out.data_ptr(), stop.data_ptr(),
         torch.cuda.current_stream(slot_data.device).cuda_stream,
     )
     kernels.check(err, "composite_fwd")
     composite_fwd.launches += 1
-    return out
+    return out, stop
 
 
 composite_fwd.launches = 0
@@ -156,9 +170,16 @@ composite_fwd.launches = 0
 # ---------------------------------------------------------------------------
 
 def composite_bwd_plain(slot_data, pad_starts, pad_counts, tiles_x, tiles_y,
-                        g_out):
+                        g_out, stop):
     """Plain PyTorch K2: d loss / d slot_data (16, S); slots outside every
-    tile run get 0."""
+    tile run get 0.  ``stop`` (T,) int32 is the forward's stop chunks.
+
+    The kernel's decomposition, in log space: (1) each chunk's own log
+    transmittance product and weighted-gradient mass, T starting at 1 in
+    the chunk; (2) an exclusive scan over chunks into each chunk's starting
+    checkpoint (log T, q), and pass A's results (final T, total mass) at
+    the stop chunk; (3) pass B per chunk from its checkpoint, over every
+    chunk of the run (no early-out)."""
     num_tiles = tiles_x * tiles_y
     dev = slot_data.device
     S = slot_data.shape[1]
@@ -168,40 +189,43 @@ def composite_bwd_plain(slot_data, pad_starts, pad_counts, tiles_x, tiles_y,
     g_c = torch.cat([g_out[..., :C_MAX - 1],
                      torch.zeros_like(g_alpha)], dim=-1)     # (T, PIX, 8)
     max_chunks = int(nchunks.max()) if num_tiles else 0
-    zeros = torch.zeros(num_tiles, PIX, 1, device=dev)
 
-    # pass A: total weighted-gradient mass + final transmittance
-    carry, total_q = zeros, zeros
-    for ci in range(max_chunks):
-        live = (ci < nchunks) & (torch.amax(carry, dim=(1, 2)) > LOG_EPS)
-        if not bool(live.any()):
-            break
-        d, _ = _gather_chunk(slot_data, pad_starts, ci, live)
-        alpha, _, _, _ = _chunk_alpha(d, px, py)
-        alpha = alpha * live[:, None, None]
-        s = torch.log1p(-alpha)
-        w = alpha * torch.exp(torch.cumsum(s, dim=-1) - s + carry)
-        cg = g_c @ d[8:8 + C_MAX].permute(1, 0, 2)           # (T, PIX, CHUNK)
-        total_q = total_q + torch.sum(w * cg, dim=-1, keepdim=True)
-        carry = carry + torch.sum(s, dim=-1, keepdim=True)
-    galpha_T = g_alpha * torch.exp(carry)
-
-    # pass B: per-slot gradients over every chunk (no early-out)
-    grad = torch.zeros(D_PAIR, S + 1, device=dev)            # col S: dummy
-    carry, pref_q = zeros, zeros
-    for ci in range(max_chunks):
+    def chunk(ci):
         has = ci < nchunks
         d, idx = _gather_chunk(slot_data, pad_starts, ci, has)
         alpha, e, dx, dy = _chunk_alpha(d, px, py)
         alpha = alpha * has[:, None, None]
-        e = e * has[:, None, None]
         s = torch.log1p(-alpha)
-        Tj = torch.exp(torch.cumsum(s, dim=-1) - s + carry)
+        cum_excl = torch.cumsum(s, dim=-1) - s               # log T_local
+        cg = g_c @ d[8:8 + C_MAX].permute(1, 0, 2)           # (T, PIX, CHUNK)
+        return has, d, idx, alpha, e * has[:, None, None], dx, dy, s, cum_excl, cg
+
+    # (1) chunk summaries
+    log_p, mass = [], []
+    for ci in range(max_chunks):
+        _, _, _, alpha, _, _, _, s, cum_excl, cg = chunk(ci)
+        log_p.append(torch.sum(s, dim=-1, keepdim=True))
+        mass.append(torch.sum(alpha * torch.exp(cum_excl) * cg, dim=-1, keepdim=True))
+    # (2) checkpoints at each chunk's start; entry max_chunks follows the last
+    zero = torch.zeros(1, num_tiles, PIX, 1, device=dev)
+    log_t0, q0 = zero, zero
+    if max_chunks:
+        log_t0 = torch.cat([zero, torch.cumsum(torch.stack(log_p), dim=0)])
+        q0 = torch.cat([zero, torch.cumsum(torch.exp(log_t0[:-1]) * torch.stack(mass),
+                                           dim=0)])
+    at_stop = stop.long()[None, :, None, None].expand(1, num_tiles, PIX, 1)
+    galpha_T = g_alpha * torch.exp(torch.gather(log_t0, 0, at_stop)[0])
+    total_q = torch.gather(q0, 0, at_stop)[0]
+
+    # (3) pass B per chunk
+    grad = torch.zeros(D_PAIR, S + 1, device=dev)            # col S: dummy
+    for ci in range(max_chunks):
+        has, d, idx, alpha, e, dx, dy, s, cum_excl, cg = chunk(ci)
+        Tj = torch.exp(cum_excl + log_t0[ci])
         w = alpha * Tj
-        cg = g_c @ d[8:8 + C_MAX].permute(1, 0, 2)
         q = w * cg
-        suffix = total_q - (torch.cumsum(q, dim=-1) + pref_q)
-        dl_da = cg * Tj + (galpha_T - suffix) / (1.0 - alpha)
+        suffix = total_q - (torch.cumsum(q, dim=-1) + q0[ci])
+        dl_da = cg * Tj + (galpha_T - suffix) * torch.reciprocal(1.0 - alpha)
         ca, cb, cc = d[2][:, None, :], d[3][:, None, :], d[4][:, None, :]
         g_sigma = -dl_da * alpha
         rows = [
@@ -218,39 +242,51 @@ def composite_bwd_plain(slot_data, pad_starts, pad_counts, tiles_x, tiles_y,
         g_all = torch.cat([g_slot, pad, g_col], dim=0)             # (16, T, C)
         dst = torch.where(has[:, None], idx, torch.full_like(idx, S))
         grad[:, dst.reshape(-1)] = g_all.reshape(D_PAIR, -1)
-        pref_q = pref_q + torch.sum(q, dim=-1, keepdim=True)
-        carry = carry + torch.sum(s, dim=-1, keepdim=True)
     return grad[:, :S]
 
 
-def composite_bwd(slot_data, pad_starts, pad_counts, tiles_x, tiles_y, g_out):
-    """K2: launches the CUDA kernel for CUDA tensors (counted in
-    ``composite_bwd.launches``); the plain version for CPU tensors.
+def composite_bwd(slot_data, pad_starts, pad_counts, tiles_x, tiles_y, g_out, stop):
+    """K2: launches the CUDA kernels for CUDA tensors (one call, counted
+    once in ``composite_bwd.launches``); the plain version for CPU tensors.
+    ``stop`` is the stop chunks ``composite_fwd`` returned.
 
     Replaces the Pallas ``_bwd_kernel`` (``artdeco_tpu/ops/splat/
-    composite.py``).  On the H100 it is bound by the per-slot reduction of
-    13 gradients over 256 pixels; the kernel does it with warp shuffles and
-    one fixed-order pass over the 8 warps in shared memory, and writes each
-    slot once (a slot belongs to one tile), so it needs no global atomics."""
+    composite.py``).  On the H100 it is bound by compute: pass B spends
+    14 flops on alpha for every (pixel, slot) pair of a real slot of every
+    run and, where alpha > 0, 63 more (50 for the gradient terms, 13 for
+    the sums over the tile's pixels).  A serial walk per tile would fill
+    the card with one block per tile, so the call runs three kernels:
+    per-chunk summaries (P, Q), one
+    scan per tile into per-chunk checkpoints (T, q), and pass B per chunk
+    from its checkpoint, with each slot's 13 gradients summed over a warp by
+    one 16-shuffle butterfly.  Each slot is written once (a slot belongs to
+    one tile), with no global atomics: the result is deterministic."""
     _check_inputs(slot_data, pad_starts, pad_counts, tiles_x, tiles_y)
     num_tiles = tiles_x * tiles_y
     if g_out.shape != (num_tiles, PIX, C_MAX) or g_out.dtype != torch.float32:
         raise ValueError(f"g_out must be ({num_tiles}, {PIX}, {C_MAX}) float32")
+    if stop.dtype != torch.int32 or stop.shape != (num_tiles,) \
+            or stop.device != slot_data.device:
+        raise ValueError(f"stop must be ({num_tiles},) int32 on {slot_data.device}")
     if slot_data.device.type == "cpu":
         return composite_bwd_plain(slot_data, pad_starts, pad_counts,
-                                   tiles_x, tiles_y, g_out)
+                                   tiles_x, tiles_y, g_out, stop)
     if slot_data.device.type != "cuda":
         raise ValueError(f"composite_bwd: unsupported device {slot_data.device}")
     slot_data = slot_data.contiguous()
     g_out = g_out.contiguous()
-    # zeros: slots outside every run are never written by the kernel
+    stop = stop.contiguous()
+    S = slot_data.shape[1]
+    # zeros: slots outside every run are never written by the kernels
     grad = torch.zeros_like(slot_data)
+    # scratch: a (T, q) checkpoint per (chunk, pixel), then pass A's
+    # results per (tile, pixel)
+    ckpt = torch.empty((S // CHUNK + num_tiles) * PIX * 2, device=slot_data.device)
     lib = kernels.load()
     err = lib.artdeco_composite_bwd(
-        slot_data.data_ptr(), slot_data.shape[1], pad_starts.data_ptr(),
-        pad_counts.data_ptr(), num_tiles, tiles_x, g_out.data_ptr(),
-        grad.data_ptr(),
-        torch.cuda.current_stream(slot_data.device).cuda_stream,
+        slot_data.data_ptr(), S, pad_starts.data_ptr(), pad_counts.data_ptr(),
+        stop.data_ptr(), num_tiles, tiles_x, g_out.data_ptr(), ckpt.data_ptr(),
+        grad.data_ptr(), torch.cuda.current_stream(slot_data.device).cuda_stream,
     )
     kernels.check(err, "composite_bwd")
     composite_bwd.launches += 1
@@ -267,15 +303,17 @@ composite_bwd.launches = 0
 class _TileComposite(torch.autograd.Function):
     @staticmethod
     def forward(ctx, slot_data, pad_starts, pad_counts, tiles_x, tiles_y):
-        ctx.save_for_backward(slot_data, pad_starts, pad_counts)
+        out, stop = composite_fwd(slot_data, pad_starts, pad_counts, tiles_x, tiles_y)
+        # the backward takes the forward's stop chunks: both use one vote
+        ctx.save_for_backward(slot_data, pad_starts, pad_counts, stop)
         ctx.tiles = (tiles_x, tiles_y)
-        return composite_fwd(slot_data, pad_starts, pad_counts, tiles_x, tiles_y)
+        return out
 
     @staticmethod
     def backward(ctx, g_out):
-        slot_data, pad_starts, pad_counts = ctx.saved_tensors
+        slot_data, pad_starts, pad_counts, stop = ctx.saved_tensors
         g = composite_bwd(slot_data, pad_starts, pad_counts, *ctx.tiles,
-                          g_out.contiguous())
+                          g_out.contiguous(), stop)
         return g, None, None, None, None
 
 

@@ -16,6 +16,7 @@ import time
 import numpy as np
 import torch
 
+from artdeco_tpu_torch.device import resolve
 from artdeco_tpu_torch.mapper.config import MapperConfig
 from artdeco_tpu_torch.mapper.keyframe import make_device_keyframe
 from artdeco_tpu_torch.mapper.scene_model import SceneModel
@@ -96,12 +97,12 @@ class MapperStage:
     ``K_map`` and map size set the scene's camera.
     """
 
-    def __init__(self, dataset, cfg: MapperConfig = MapperConfig(), *, device,
+    def __init__(self, dataset, cfg: MapperConfig = MapperConfig(), *, device=None,
                  seed: int = 0, num_key_iterations: int = 30,
                  num_common_iterations: int = 0, noise=None):
         self.dataset = dataset
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = resolve(device)
         self.num_key_iterations = num_key_iterations
         self.num_common_iterations = num_common_iterations
         self.scene_model = SceneModel(dataset.W_map, dataset.H_map, dataset.K_map,

@@ -16,6 +16,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from artdeco_tpu_torch.device import resolve
 from artdeco_tpu_torch.geometry import lie
 from artdeco_tpu_torch.vslam import tracker as trk
 from artdeco_tpu_torch.vslam.frame import Frame, KeyframeStyle
@@ -135,13 +136,13 @@ class Frontend:
     """Tracks each frame and produces the backend's messages."""
 
     def __init__(self, args, config: dict, dataset, keyframes: KeyframeStore, runner, *,
-                 device):
+                 device=None):
         self.args = args
         self.config = config
         self.dataset = dataset
         self.keyframes = keyframes
         self.runner = runner
-        self.device = torch.device(device)
+        self.device = resolve(device)
         min_disp = max(getattr(args, "min_displacement", 0.03) * dataset.W_slam, 30)
         self.tracker = CameraTracker(
             config, runner, keyframes, dataset.H_slam, dataset.W_slam, dataset.K_slam,

@@ -12,6 +12,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from artdeco_tpu_torch.device import resolve
 from artdeco_tpu_torch.vslam.frame import Frame
 
 
@@ -19,10 +20,10 @@ class KeyframeStore:
     """Fixed-capacity keyframe SoA on ``device``."""
 
     def __init__(self, h: int, w: int, K_slam=None, buffer: int = 2048,
-                 dtype=np.float32, *, device):
+                 dtype=np.float32, *, device=None):
         self.h, self.w = h, w
         self.buffer = buffer
-        self.device = torch.device(device)
+        self.device = resolve(device)
         self.n_size = 0
         self.dataset_idx = np.zeros(buffer, np.int32)
         self.cam_id = np.zeros(buffer, np.int32)

@@ -21,14 +21,20 @@ stream at the ``MapperConfig`` defaults, and the tracking frontend
    must be finite.
 4. kernel goldens and timings at the training shape (256x192, 192 tiles):
    on the slot data of the largest scene of the stream, and on a random
-   scene of 10^5 Gaussians, the size of a real scene.
+   scene of 10^5 Gaussians, the size of a real scene.  K2 runs on K1's stop
+   chunks; two K2 calls must be bitwise equal.  Each time is printed beside
+   the kernel's bound (the least time the card could take for the work
+   these inputs need, counted from the plain version's alpha) and the
+   share of the bound it reaches; K2's kernels are also timed one by one
+   under torch.profiler.
 5. profile: one more 20-iteration burst under torch.profiler; prints the
    window, the device's busy time and idle share, the kernel count, the
    kernels that take the most device time, and the peak device memory.
 6. K3 goldens and timings: the refine window-argmax kernel against its
    plain version on a small random case and at the stream's shape
    (384x512, 24 channels, radius 4, dilation 5, the oracle's descriptors
-   and the matcher's own initial positions and validity); times both.
+   and the matcher's own initial positions and validity); times both and
+   prints K3's bound.
 7. the tracking slice: 120 frames, 4.1 px of motion each; K3's launches
    must equal the matches made, no frame may be lost, at least two
    keyframes, ATE RMSE < 0.03 m against ground truth; prints ms per
@@ -42,6 +48,7 @@ is then not 0 and the last line is not printed.
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -60,6 +67,26 @@ N_PROFILED = 20    # iterations of the profiled burst
 TRACK_W, TRACK_H, TRACK_FRAMES = 512, 384, 120
 K3_RADIUS, K3_DILATION = 4, 5
 N_PROFILED_FRAMES = 5
+
+# Published peaks of one H100 SXM (NVIDIA's data sheet, dense; at a 700 W
+# limit): float32 outside the tensor cores, bf16 on the tensor cores (f32
+# accumulation), and HBM3.
+PEAK_F32 = 67e12
+PEAK_BF16 = 989e12
+PEAK_BYTES = 3.35e12
+# flops per (pixel, slot) pair, counted from csrc/composite.cu.  Alpha, on
+# every pair of a real (non-padding) slot: dx, dy, sigma (9), exp (2), raw
+# (1) = 14.  The rest only where alpha > 0 (elsewhere every term is 0):
+# K1: w, 7 FMAs (14), T *= 1 - a (2).  K2 pass A: cg (7 FMAs), w,
+# q += w cg (2), T (2).  K2 pass B: cg (14), w, pref_q (2), suffix, dl_da
+# (5), g_sigma, the mean, conic and opacity terms (4 + 4 + 3 + 2 + 3 + 1),
+# w gc (7), T (2), and one add per pixel for each of the 13 sums over the
+# tile's pixels.
+FLOP_ALPHA = 14
+FLOP_K1 = 1 + 14 + 2
+FLOP_K2_A = 14 + 1 + 2 + 2
+FLOP_K2_B = 14 + 1 + 2 + 1 + 5 + 1 + 17 + 7 + 2 + 13
+K3_WINDOW = 5 * 9 * 9         # window positions: dilations 5..1, 9x9 each
 
 
 def check(ok: bool, what: str) -> None:
@@ -108,6 +135,81 @@ def random_slots(device, seed=1, n=300, width=64, height=48):
         return api.pack_slots(*args, width, height, sh_degree=3, eps2d=0.01)
 
 
+def bound(flops: float, nbytes: float, peak: float = PEAK_F32) -> tuple:
+    """(ms, "operations" or "bytes"): the least time for ``flops``
+    operations at ``peak`` per second and ``nbytes`` of device memory
+    traffic on an H100."""
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def composite_work(p, stop) -> dict:
+    """What the compositor's work on packed slots ``p`` needs, counted from
+    the plain version's alpha: the real slots of the runs (padding slots are
+    zero), their (pixel, slot) pairs and those with alpha > 0, each in all
+    and before each tile's stop chunk ``stop``."""
+    import torch
+    from artdeco_tpu_torch.ops.splat import composite as C
+
+    T = p.tiles_x * p.tiles_y
+    px, py = C._pix_coords(T, p.tiles_x, p.slot_data.device)
+    nchunks = p.pad_counts.long() // C.CHUNK
+    keys = ("slots", "slots_voted", "hit", "hit_voted")
+    n = {k: torch.zeros((), dtype=torch.int64, device=p.slot_data.device) for k in keys}
+    with torch.no_grad():
+        for ci in range(int(nchunks.max()) if T else 0):
+            has = ci < nchunks
+            d, _ = C._gather_chunk(p.slot_data, p.pad_starts, ci, has)
+            real = (d[5] != 0) & has[:, None]                        # (T, CHUNK)
+            hit = (C._chunk_alpha(d, px, py)[0] > 0) & real[:, None, :]
+            voted = (ci < stop.long())[:, None]
+            n["slots"] += real.sum()
+            n["slots_voted"] += (real & voted).sum()
+            n["hit"] += hit.sum()
+            n["hit_voted"] += (hit & voted[:, :, None]).sum()
+    return {k: int(v) for k, v in n.items()}
+
+
+def composite_bounds(p, stop):
+    """K1's and K2's bounds on packed slots ``p`` with K1's stop chunks, and
+    the work counts they rest on.  K1 and K2's pass A composite the real
+    slots up to each tile's stop chunk, pass B every real slot of every run;
+    each computes alpha on every (pixel, real slot) pair and the rest only
+    where alpha > 0.  Bytes: each input read once (the real slots the work
+    needs, the image gradient), each output written once (the images and
+    stop chunks; the real slots' gradients)."""
+    n = composite_work(p, stop)
+    T = p.tiles_x * p.tiles_y
+    img = 4 * T * 256 * 8
+    k1 = bound(256 * FLOP_ALPHA * n["slots_voted"] + FLOP_K1 * n["hit_voted"],
+               64 * n["slots_voted"] + img + 4 * T)
+    k2 = bound(256 * FLOP_ALPHA * (n["slots_voted"] + n["slots"])
+               + FLOP_K2_A * n["hit_voted"] + FLOP_K2_B * n["hit"],
+               128 * n["slots"] + img + 4 * T)
+    return k1, k2, n
+
+
+def kernel_split(fn, n=10) -> str:
+    """Device ms per call of each kernel that ``fn`` launches
+    (torch.profiler over n calls, after one warm-up call)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    # "void ns::name<...>(...)" -> "name"
+    names = [re.split(r"[<(]", e.key.replace("(anonymous namespace)::", "")
+                      .removeprefix("void "))[0].split("::")[-1] for e in dev]
+    return ", ".join(f"{name} {e.self_device_time_total / 1e3 / n:.4f}"
+                     for name, e in zip(names, dev)) or "not measured"
+
+
 def golden(p, timed: bool):
     """K1/K2 against their plain versions on packed slots ``p``.
 
@@ -116,14 +218,15 @@ def golden(p, timed: bool):
     agree to 1e-4 absolute and depth to 1e-3 relative.  The backward sums
     each slot's gradient over 256 pixels in a fixed shuffle tree, the plain
     version in matmul order: 1e-3 relative to each gradient group's largest
-    entry.  The renderer's gather VJP (no atomics, fixed order) is not part
-    of this comparison."""
+    entry.  K2 and its plain version both take K1's stop chunks; two K2
+    calls must be bitwise equal.  The renderer's gather VJP (no atomics,
+    fixed order) is not part of this comparison."""
     import torch
     from artdeco_tpu_torch.ops.splat import composite as C
 
     args = (p.slot_data.contiguous(), p.pad_starts, p.pad_counts, p.tiles_x, p.tiles_y)
-    out = C.composite_fwd(*args)
-    ref = C.composite_fwd_plain(*args)
+    out, stop = C.composite_fwd(*args)
+    ref, stop_ref = C.composite_fwd_plain(*args)
     torch.cuda.synchronize()
     rgba = [0, 1, 2, C.C_MAX - 1]
     err_rgba = (out[..., rgba] - ref[..., rgba]).abs().max().item()
@@ -135,22 +238,29 @@ def golden(p, timed: bool):
 
     g_out = torch.randn(out.shape, generator=torch.Generator(device=out.device)
                         .manual_seed(7), device=out.device)
-    gk = C.composite_bwd(*args, g_out)
-    gp = C.composite_bwd_plain(*args, g_out)
+    gk = C.composite_bwd(*args, g_out, stop)
+    gk2 = C.composite_bwd(*args, g_out, stop)
+    gp = C.composite_bwd_plain(*args, g_out, stop)
     torch.cuda.synchronize()
+    check(torch.equal(gk, gk2), "K2: two calls on the same inputs differ")
     for rows, name in (([0, 1], "mean2d"), ([2, 3, 4], "conic"), ([5], "opacity"),
                        (list(range(8, 16)), "channels")):
         e = (gk[rows] - gp[rows]).abs().max().item()
         s = gp[rows].abs().max().item()
         check(e <= 1e-3 * max(s, 1e-12), f"K2 {name} err {e} > 1e-3 * {s}")
     bwd_err = (gk - gp).abs().max().item()
-    res = dict(fwd_err=fwd_err, bwd_err=bwd_err)
+    (k1_bound, k1_by), (k2_bound, k2_by), work = composite_bounds(p, stop)
+    res = dict(fwd_err=fwd_err, bwd_err=bwd_err, fwd_bound=k1_bound, fwd_by=k1_by,
+               bwd_bound=k2_bound, bwd_by=k2_by, chunks=int(p.pad_counts.sum()) // 128,
+               stop_chunks=int(stop.sum()), work=work,
+               stop_equal=int((stop == stop_ref).sum()), tiles=stop.numel())
     if timed:
         res.update(
             fwd_ms=cuda_ms(lambda: C.composite_fwd(*args)),
             fwd_plain_ms=cuda_ms(lambda: C.composite_fwd_plain(*args)),
-            bwd_ms=cuda_ms(lambda: C.composite_bwd(*args, g_out)),
-            bwd_plain_ms=cuda_ms(lambda: C.composite_bwd_plain(*args, g_out)),
+            bwd_ms=cuda_ms(lambda: C.composite_bwd(*args, g_out, stop)),
+            bwd_plain_ms=cuda_ms(lambda: C.composite_bwd_plain(*args, g_out, stop)),
+            bwd_kernels=kernel_split(lambda: C.composite_bwd(*args, g_out, stop)),
         )
     return res
 
@@ -350,11 +460,20 @@ def main() -> int:
     # -- 4. kernel goldens + timings at the training shape -----------------
     def golden_line(what, p, n_gauss):
         r = golden(p, timed=True)
+        w = r["work"]
         print(f"phase 4 goldens, {what} ({p.width}x{p.height}, {p.slot_data.shape[1]} "
-              f"slots, {int(p.meta.num_pairs)} pairs, {n_gauss} Gaussians): K1 err "
-              f"{r['fwd_err']:.3g} {r['fwd_ms']:.4f} ms (plain {r['fwd_plain_ms']:.3f} ms); "
-              f"K2 err {r['bwd_err']:.3g} {r['bwd_ms']:.4f} ms "
-              f"(plain {r['bwd_plain_ms']:.3f} ms)", flush=True)
+              f"slots, {int(p.meta.num_pairs)} pairs, {n_gauss} Gaussians, {r['chunks']} "
+              f"chunks in runs, {r['stop_chunks']} before the vote; K1 stop chunks equal "
+              f"the plain version's on {r['stop_equal']}/{r['tiles']} tiles; real slots "
+              f"{w['slots']} ({w['slots_voted']} before the vote), pixel-slot pairs with "
+              f"alpha > 0 {w['hit']} ({w['hit_voted']} before the vote) of "
+              f"{256 * w['slots']}): K1 err {r['fwd_err']:.3g} {r['fwd_ms']:.4f} ms (bound "
+              f"{r['fwd_bound']:.4f} ms by {r['fwd_by']}, {r['fwd_bound'] / r['fwd_ms']:.1%} "
+              f"of it; plain {r['fwd_plain_ms']:.3f} ms); K2 err {r['bwd_err']:.3g}, two "
+              f"calls bitwise equal, {r['bwd_ms']:.4f} ms (bound {r['bwd_bound']:.4f} ms by "
+              f"{r['bwd_by']}, {r['bwd_bound'] / r['bwd_ms']:.1%} of it; plain "
+              f"{r['bwd_plain_ms']:.3f} ms; its kernels, device ms per call: "
+              f"{r['bwd_kernels']})", flush=True)
         return r
 
     p = biggest[1]
@@ -400,14 +519,23 @@ def main() -> int:
                                   lambda_init=float(mcfg["lambda_init"]),
                                   cost_thresh=float(mcfg["convergence_thresh"]),
                                   dist_thresh=float(mcfg["dist_thresh"]))
-    k3 = k3_golden(runner._dev(1)[1].reshape(h, w, -1).to(torch.bfloat16),
-                   runner._dev(0)[1].to(torch.bfloat16), p1[0].contiguous(), valid[0],
+    D11b = runner._dev(1)[1].reshape(h, w, -1).to(torch.bfloat16)
+    k3 = k3_golden(D11b, runner._dev(0)[1].to(torch.bfloat16), p1[0].contiguous(), valid[0],
                    timed=True)
+    # K3's bound: a 2-flop multiply-add of two bf16 values per channel at
+    # every window position of every valid query, at the bf16 tensor-core
+    # rate (f32 accumulation); the descriptors, positions and validity read
+    # once, positions and scores written once
+    nq, nf = k3["n"], D11b.shape[-1]
+    k3_bound, k3_by = bound(2 * nf * K3_WINDOW * k3["n_valid"],
+                            2 * h * w * nf + 2 * nq * nf + 8 * nq + nq + 8 * nq + 4 * nq,
+                            PEAK_BF16)
     print(f"phase 6 K3 goldens: random 48x64 positions equal {small_k3['same']:.6f}, max "
           f"score err {small_k3['err']:.3g}; stream shape {h}x{w} f24 r{K3_RADIUS} "
           f"d{K3_DILATION} ({k3['n_valid']}/{k3['n']} valid queries) positions equal "
           f"{k3['same']:.6f}, max score err {k3['err']:.3g}, K3 {k3['ms']:.4f} ms "
-          f"(plain {k3['plain_ms']:.3f} ms)", flush=True)
+          f"(bound {k3_bound:.4f} ms by {k3_by}, {k3_bound / k3['ms']:.1%} of it; plain "
+          f"{k3['plain_ms']:.3f} ms)", flush=True)
 
     # -- 7. the tracking slice -------------------------------------------------
     store = KeyframeStore(h, w, tds.K_slam, buffer=64, device=dev)
@@ -455,15 +583,18 @@ def main() -> int:
         {"name": "composite_fwd", "route": "cuda", "source": src,
          "replaces": "artdeco_tpu/ops/splat/composite.py:113",
          "launches": launches["fwd"], "max_abs_err": big["fwd_err"],
-         "ms": big["fwd_ms"], "plain_ms": big["fwd_plain_ms"]},
+         "ms": big["fwd_ms"], "plain_ms": big["fwd_plain_ms"],
+         "bound_ms": big["fwd_bound"], "bound_by": big["fwd_by"], "library_ms": None},
         {"name": "composite_bwd", "route": "cuda", "source": src,
          "replaces": "artdeco_tpu/ops/splat/composite.py:152",
          "launches": launches["bwd"], "max_abs_err": big["bwd_err"],
-         "ms": big["bwd_ms"], "plain_ms": big["bwd_plain_ms"]},
+         "ms": big["bwd_ms"], "plain_ms": big["bwd_plain_ms"],
+         "bound_ms": big["bwd_bound"], "bound_by": big["bwd_by"], "library_ms": None},
         {"name": "window_argmax", "route": "cuda", "source": "artdeco_tpu_torch/csrc/refine.cu",
          "replaces": "artdeco_tpu/ops/refine_pallas.py:30",
          "launches": k3_launches, "max_abs_err": k3["err"],
-         "ms": k3["ms"], "plain_ms": k3["plain_ms"]},
+         "ms": k3["ms"], "plain_ms": k3["plain_ms"],
+         "bound_ms": k3_bound, "bound_by": k3_by, "library_ms": None},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

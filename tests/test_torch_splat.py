@@ -119,8 +119,8 @@ def test_projection_matches_jax(antialiased):
         n(jproj.quat_scale_to_cov3d(quats, scales)), rtol=1e-5, atol=1e-8)
 
 
-def _projected_sorted(seed):
-    means, quats, scales, opac, _, view = _scene(seed)
+def _projected_sorted(seed, num=300):
+    means, quats, scales, opac, _, view = _scene(seed, num)
     p = jproj.project_gaussians(means, quats, scales, view, K, W, H, eps2d=0.3)
     order = np.argsort(np.asarray(p.depths), kind="stable")
     return (np.asarray(p.means2d)[order], np.asarray(p.conics)[order],
@@ -174,10 +174,10 @@ def test_slot_gather_backward_is_the_scatter_add():
     assert (n(a.grad)[n(tb.gauss_slots).max(1) < 0] == 0).all()
 
 
-def _slot_data(seed):
+def _slot_data(seed, num=300):
     """Slot matrix + runs built by the JAX binning, as the renderer packs
     them (channels: rgb, depth)."""
-    m2d, conics, radii, opac = _projected_sorted(seed)
+    m2d, conics, radii, opac = _projected_sorted(seed, num)
     rng = np.random.default_rng(seed + 100)
     ch = rng.uniform(size=(m2d.shape[0], 4)).astype(np.float32)
     tx, ty = -(-W // 16), -(-H // 16)
@@ -206,9 +206,15 @@ def test_composite_forward_matches_jax():
     np.testing.assert_allclose(img[..., 7], n(ref_a), atol=2e-5)
 
 
-def test_composite_backward_matches_jax():
-    sd, ps, pc, counts, tx, ty, _ = _slot_data(5)
-    g_out = np.random.default_rng(6).normal(size=(tx * ty, 256, 8)).astype(np.float32)
+def _in_run(ps, pc, S):
+    in_run = np.zeros(S, bool)
+    for s0, c in zip(ps, pc):
+        in_run[s0:s0 + c] = True
+    return in_run
+
+
+def _backward_matches_jax(sd, ps, pc, tx, ty, seed):
+    g_out = np.random.default_rng(seed).normal(size=(tx * ty, 256, 8)).astype(np.float32)
     _, vjp = jax.vjp(lambda s: jcomp.tile_composite(s, jnp.asarray(ps), jnp.asarray(pc),
                                                     tx, ty), jnp.asarray(sd))
     (jg,) = vjp(jnp.asarray(g_out))
@@ -216,14 +222,82 @@ def test_composite_backward_matches_jax():
     tcomp.tile_composite(ts, t(ps), t(pc), tx, ty).backward(t(g_out))
     # compare the slots of every run (JAX leaves the rest unwritten); the
     # port writes zeros outside the runs
-    in_run = np.zeros(sd.shape[1], bool)
-    for s0, c in zip(ps, pc):
-        in_run[s0:s0 + c] = True
+    in_run = _in_run(ps, pc, sd.shape[1])
     tg, jg = n(ts.grad), n(jg)
     for rows, name in (([0, 1], "mean2d"), ([2, 3, 4], "conic"), ([5], "opacity"),
                        (list(range(8, 16)), "channels")):
         _close_rel(tg[rows][:, in_run], jg[rows][:, in_run], 1e-4, err_msg=name)
     assert (tg[:, ~in_run] == 0).all() and (tg[6:8] == 0).all()
+
+
+def test_composite_backward_matches_jax():
+    sd, ps, pc, counts, tx, ty, _ = _slot_data(5)
+    _backward_matches_jax(sd, ps, pc, tx, ty, 6)
+
+
+def _tile_gaussians(rng, n, tile, opacity, sigma):
+    """n screen-space Gaussians around tile (column) ``tile`` of a one-row
+    grid, as slot columns (16, n): rgb + depth channels, sheared conics."""
+    cols = np.zeros((16, n), np.float32)
+    cols[0] = tile * 16 + rng.uniform(-4, 20, n)
+    cols[1] = rng.uniform(-4, 20, n)
+    sx = rng.uniform(*sigma, n)
+    sy = sx * rng.uniform(0.7, 1.4, n)
+    cols[2], cols[4] = 1 / sx**2, 1 / sy**2
+    cols[3] = rng.uniform(-0.3, 0.3, n) / (sx * sy)
+    cols[5] = rng.uniform(*opacity, n)
+    cols[8:12] = rng.uniform(size=(4, n))
+    return cols
+
+
+def _edge_case(case):
+    """A three-tile row whose tile ``k`` has the case's run; the others hold
+    ordinary random Gaussians.  Runs are padded to whole chunks with empty
+    slots and laid out in tile order, and (except for ``multi_chunk``, whose
+    large run is the last of the matrix) one chunk outside every run
+    follows.  Returns sd, starts, counts, tiles_x, tiles_y, k and the
+    expected stop chunk of tile k given its chunk count."""
+    rng = np.random.default_rng(sum(map(ord, case)))
+    usual = dict(opacity=(0.2, 0.9), sigma=(2.0, 5.0))
+    runs = [_tile_gaussians(rng, 100, 0, **usual), _tile_gaussians(rng, 200, 1, **usual),
+            _tile_gaussians(rng, 60, 2, **usual)]
+    k, tail = 0, 1
+    if case == "empty_run":
+        runs[0] = np.zeros((16, 0), np.float32)
+        want = lambda stop, nch: stop == 0
+    elif case == "stop_at_chunk_1":
+        # four wide, nearly opaque Gaussians in front cover the whole tile
+        front = _tile_gaussians(rng, 4, 0, opacity=(0.99, 0.99), sigma=(40.0, 60.0))
+        runs[0] = np.concatenate([front, _tile_gaussians(rng, 380, 0, **usual)], 1)
+        want = lambda stop, nch: stop == 1 and nch == 3
+    elif case == "never_stops":
+        runs[0] = _tile_gaussians(rng, 384, 0, opacity=(0.01, 0.04), sigma=(1.0, 2.0))
+        want = lambda stop, nch: stop == nch == 3
+    else:  # multi_chunk: the vote stops inside a long run, the last of the matrix
+        k, tail = 2, 0
+        runs[2] = _tile_gaussians(rng, 768, 2, opacity=(0.1, 0.5), sigma=(1.5, 3.5))
+        want = lambda stop, nch: 1 < stop < nch == 6
+    counts = np.array([-(-r.shape[1] // 128) * 128 for r in runs], np.int32)
+    starts = (np.cumsum(counts) - counts).astype(np.int32)
+    sd = np.zeros((16, counts.sum() + tail * 128), np.float32)
+    for r, s0 in zip(runs, starts):
+        sd[:, s0:s0 + r.shape[1]] = r
+    return sd, starts, counts, 3, 1, k, want
+
+
+EDGE_CASES = ["empty_run", "stop_at_chunk_1", "never_stops", "multi_chunk"]
+
+
+@pytest.mark.parametrize("case", EDGE_CASES)
+def test_composite_backward_edge_cases_match_jax(case):
+    """Runs at the edges of K2's chunk decomposition, held to JAX
+    ``_bwd_rule``: an empty run, a vote that stops after the first chunk,
+    one that never stops, and a vote inside a long run that ends the
+    matrix."""
+    sd, ps, pc, tx, ty, k, want = _edge_case(case)
+    _, stop = tcomp.composite_fwd_plain(t(sd), t(ps), t(pc), tx, ty)
+    assert want(int(stop[k]), int(pc[k]) // 128), (case, n(stop), pc)
+    _backward_matches_jax(sd, ps, pc, tx, ty, 12)
 
 
 @pytest.mark.parametrize("sh_degree", [None, 1])
@@ -265,7 +339,7 @@ def test_wrappers_refuse_other_devices():
         tcomp.composite_fwd(sd, runs, runs, 1, 1)
     with pytest.raises(ValueError):
         tcomp.composite_bwd(sd, runs, runs, 1, 1,
-                            torch.zeros(1, 256, 8, device="meta"))
+                            torch.zeros(1, 256, 8, device="meta"), runs)
     with pytest.raises(ValueError):  # layout checks before any launch
         tcomp.composite_fwd(torch.zeros(8, 256), torch.zeros(1, dtype=torch.int32),
                             torch.zeros(1, dtype=torch.int32), 1, 1)
@@ -280,21 +354,33 @@ def cuda_device():
 
 @pytest.mark.cuda
 def test_kernels_match_plain_versions_on_card(cuda_device):
-    """K1/K2 against their plain PyTorch versions on the same card inputs.
-    Forward 1e-4 absolute on RGB/alpha (products in another order); the
-    backward sums each slot over 256 pixels in a fixed tree, the plain
-    version in matmul order: 1e-3 relative to each group's largest entry."""
-    sd, ps, pc, _, tx, ty, _ = _slot_data(9)
-    sd, ps, pc = (x.to(cuda_device) for x in (t(sd), t(ps), t(pc)))
-    f0, b0 = tcomp.composite_fwd.launches, tcomp.composite_bwd.launches
-    out = tcomp.composite_fwd(sd, ps, pc, tx, ty)
-    ref = tcomp.composite_fwd_plain(sd, ps, pc, tx, ty)
-    np.testing.assert_allclose(n(out), n(ref), atol=1e-4)
-    g = torch.randn_like(out)
-    gk = tcomp.composite_bwd(sd, ps, pc, tx, ty, g)
-    gp = tcomp.composite_bwd_plain(sd, ps, pc, tx, ty, g)
-    torch.cuda.synchronize()
-    for rows in ([0, 1], [2, 3, 4], [5], list(range(8, 16))):
-        _close_rel(gk[rows], gp[rows], 1e-3)
-    assert tcomp.composite_fwd.launches == f0 + 1
-    assert tcomp.composite_bwd.launches == b0 + 1
+    """K1/K2 against their plain PyTorch versions on the same card inputs:
+    a random scene, a dense one with multi-chunk runs, and K2's edge cases.
+    Forward 1e-4 absolute on RGB/alpha (products in another order) and the
+    same stop chunks; the backward, given K1's stop chunks, sums each slot
+    over 256 pixels in a fixed tree, the plain version in matmul order:
+    1e-3 relative to each group's largest entry.  Two K2 calls are bitwise
+    equal, and each wrapper call counts one launch."""
+    cases = [(sd, ps, pc, tx, ty) for sd, ps, pc, _, tx, ty, _ in
+             (_slot_data(9), _slot_data(10, num=3000))]
+    cases += [_edge_case(c)[:5] for c in EDGE_CASES]
+    assert max(int(pc.max()) for _, _, pc, _, _ in cases[:2]) >= 3 * 128  # multi-chunk
+    for sd, ps, pc, tx, ty in cases:
+        sd, ps, pc = (x.to(cuda_device) for x in (t(sd), t(ps), t(pc)))
+        f0, b0 = tcomp.composite_fwd.launches, tcomp.composite_bwd.launches
+        out, stop = tcomp.composite_fwd(sd, ps, pc, tx, ty)
+        ref, stop_ref = tcomp.composite_fwd_plain(sd, ps, pc, tx, ty)
+        np.testing.assert_allclose(n(out), n(ref), atol=1e-4)
+        np.testing.assert_array_equal(n(stop), n(stop_ref))
+        g = torch.randn_like(out)
+        gk = tcomp.composite_bwd(sd, ps, pc, tx, ty, g, stop)
+        gk2 = tcomp.composite_bwd(sd, ps, pc, tx, ty, g, stop)
+        gp = tcomp.composite_bwd_plain(sd, ps, pc, tx, ty, g, stop)
+        torch.cuda.synchronize()
+        for rows in ([0, 1], [2, 3, 4], [5], list(range(8, 16))):
+            _close_rel(gk[rows], gp[rows], 1e-3)
+        assert torch.equal(gk, gk2)
+        in_run = _in_run(n(ps), n(pc), sd.shape[1])
+        assert (n(gk)[:, ~in_run] == 0).all() and (n(gk)[6:8] == 0).all()
+        assert tcomp.composite_fwd.launches == f0 + 1
+        assert tcomp.composite_bwd.launches == b0 + 2
