@@ -16,17 +16,41 @@
 //   of the matrix belongs to at most one tile.
 //   Output (T, 256, 8): channels 0..6 composited, channel 7 = alpha.
 //
-// K1: one block per 16x16 tile, one thread per pixel.  The block stages
-// 128-slot chunks in shared memory, slot-major (a slot's 16 rows are 64
+// K1: a cluster of SPLIT (4) blocks per 16x16 tile.  What bounds it is
+// the serial walk: per (pixel, slot) an exp, the alpha tests and, where
+// alpha > 0, 7 FMAs and T *= 1 - a, all on one dependent chain (compute and
+// latency, not bytes: a chunk is 8 KB and every pixel of the tile reads
+// it).  One thread per pixel walking all 128 slots of a chunk, one block
+// per tile, ran 192 blocks of 8 warps at the stream's scene: most SMs held
+// one block, and the chain's latency was exposed.  Front-to-back "over" is
+// associative, so the walk is split inside each chunk: a run of slots
+// reduces to (P, C), P = prod(1 - a) and C = sum a T_local c, T_local
+// starting at 1.  Each block takes 64 pixels of the tile; its 256 threads
+// are those pixels x the chunk's 4 sub-runs of 32 slots, one sub-run per
+// pair of warps (so every lane of a warp reads the same slot: broadcast).
+// The sub-runs' (P, C) are combined in order in shared memory, C <- C_a +
+// P_a C_b, P <- P_a P_b, and the chunk's pair is applied to the pixel's
+// (T, acc).  At the stream's scene (192 tiles) that is 768 blocks, 6 an SM
+// (the card holds 186 clusters at once), and a chain of 32 slots in place
+// of 128.  After the split the chain no longer sets the time: 2, 4 and 8
+// sub-runs time alike on the H100 (PERF.md); what is left is latency (the
+// launch, a chunk's copy, the barriers, the combine).
+// Chunks are read coalesced (16 bytes a thread, neighbouring lanes on
+// neighbouring columns of one row) with cp.async into a row-major staging
+// buffer, then moved to the slot-major walk buffer (a slot's 16 rows are 64
 // contiguous bytes, read as four broadcast float4 loads: scalar loads of
-// each row would make the shared-memory pipe, not the FMAs, the limit),
-// and every thread composites front to back.  It is bound by the per-slot
-// exp and FMAs of 256 threads (compute, not bytes: a chunk is 8 KB and is
-// read by all 256 pixels).  The whole
-// tile stops when no pixel has T > 1e-4, voted with __syncthreads_or once
-// per chunk: the decision points of the Pallas kernel (max log T > log 1e-4,
-// checked per chunk), so the two packages composite the same slots.  K1
-// writes, per tile, the number of chunks it composited (its stop chunk).
+// each row would make the shared-memory pipe, not the FMAs, the limit);
+// where a tile has another chunk, its copy is in flight while the current
+// one is walked, and is dropped if the vote stops.  The exp stays the
+// accurate expf: an approximate exp can flip the raw >= 1/255 test and move
+// a pixel by more than the 1e-4 golden.  The whole tile stops when no pixel
+// has T > 1e-4, voted once per chunk boundary, first per block with
+// __syncthreads_or, then over the cluster's four flags in distributed
+// shared memory: the decision points of the Pallas kernel (max log T > log
+// 1e-4, checked per chunk), so the two packages composite the same slots.
+// A tile with one chunk never votes (T = 1 before its first chunk) and
+// never syncs its cluster.  K1 writes, per tile, the number of chunks it
+// composited (its stop chunk).
 //
 // K2 computes the JAX _bwd_kernel's function: pass A walks the forward's
 // chunks (up to its stop) for the final T and the total weighted-gradient
@@ -57,7 +81,12 @@
 // No global atomics and fixed summation orders: the result is
 // deterministic.  The checkpoints take 8 bytes per (chunk, pixel).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include "launch_info.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -76,11 +105,20 @@ constexpr unsigned FULL = 0xffffffffu;
 constexpr float ALPHA_CLAMP = 0.999f;
 constexpr float ALPHA_MIN = 1.0f / 255.0f;
 constexpr float T_EPS = 1e-4f;
+constexpr int SPLIT = 4;                 // K1: sub-runs per chunk, blocks per tile
+constexpr int SUB = CHUNK / SPLIT;       // K1: slots per sub-run
+constexpr int FWD_PIX = PIX / SPLIT;     // K1: pixels per block
+constexpr int FWD_MIN_BLOCKS = 6;        // K1: blocks an SM must hold -> <= 40 registers
+static_assert(CHUNK % SPLIT == 0 && FWD_PIX % 32 == 0,
+              "K1: every warp walks one sub-run");
+static_assert(PIX == 2 * CHUNK, "unstage_chunk: two threads per slot");
 
 // A chunk staged in shared memory, slot-major: sd[j][0] = (mean_x, mean_y,
 // conic_a, conic_b), sd[j][1] = (conic_c, opacity, pad, pad), sd[j][2..3] =
 // the 8 channels.
 typedef float4 Chunk[CHUNK][D_PAIR / 4];
+// The same chunk as the matrix holds it, row-major: cp.async's target.
+typedef float RowChunk[D_PAIR][CHUNK];
 
 struct SlotEval {
   float alpha;   // clamped alpha (0 when the pair is dropped)
@@ -135,6 +173,35 @@ __device__ __forceinline__ void load_chunk(Chunk& sd,
   }
 }
 
+// Start the copy of the chunk at column `base` into st, 16 bytes a thread,
+// neighbouring lanes on neighbouring columns of one row (coalesced; needs S
+// and base to be multiples of 4 and a 16-byte aligned matrix).
+__device__ __forceinline__ void stage_chunk(RowChunk& st, const float* __restrict__ slot,
+                                            long long S, long long base) {
+  constexpr int V = CHUNK / 4;  // 16-byte pieces of a row
+  for (int i = threadIdx.x; i < D_PAIR * V; i += PIX) {
+    const int r = i / V;
+    const int c = i - r * V;
+    const unsigned dst = (unsigned)__cvta_generic_to_shared(&st[r][4 * c]);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+                 :: "r"(dst), "l"(slot + r * S + base + 4 * c) : "memory");
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wait_staged() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Move a staged chunk to the slot-major layout: thread i writes rows
+// 8 (i & 1) .. + 7 of slot i >> 1 as two float4 stores.
+__device__ __forceinline__ void unstage_chunk(Chunk& sd, const RowChunk& st) {
+  const int j = threadIdx.x >> 1;
+  const int h = (threadIdx.x & 1) * 8;
+  sd[j][h / 4] = make_float4(st[h][j], st[h + 1][j], st[h + 2][j], st[h + 3][j]);
+  sd[j][h / 4 + 1] = make_float4(st[h + 4][j], st[h + 5][j], st[h + 6][j], st[h + 7][j]);
+}
+
 __device__ __forceinline__ float pixel_x(int t, int tiles_x, int p) {
   return float((t % tiles_x) * TILE + (p % TILE)) + 0.5f;
 }
@@ -184,47 +251,104 @@ __device__ __forceinline__ float warp_sum16(float (&v)[NPAD], int lane) {
   return v[0] + __shfl_xor_sync(FULL, v[0], 1);
 }
 
-__global__ void __launch_bounds__(PIX)
+// K1.  Block `rank` of tile t's cluster owns pixels [rank * FWD_PIX, +
+// FWD_PIX); thread (sub, lp) walks sub-run `sub` of each chunk for pixel
+// lp.  The threads of sub-run 0 also hold their pixel's T (a register) and
+// acc (shared memory) across chunks.
+__global__ void __cluster_dims__(SPLIT, 1, 1) __launch_bounds__(PIX, FWD_MIN_BLOCKS)
 composite_fwd_kernel(const float* __restrict__ slot, long long S,
                      const int* __restrict__ starts,
                      const int* __restrict__ counts, int tiles_x,
                      float* __restrict__ out, int* __restrict__ stop) {
   __shared__ Chunk sd;
-  const int t = blockIdx.x;
-  const int p = threadIdx.x;
+  __shared__ __align__(16) RowChunk st;
+  __shared__ float part[SPLIT][1 + NCH][FWD_PIX];  // each sub-run's (P, C)
+  __shared__ float acc[NCH][FWD_PIX];
+  __shared__ int vote[2];                          // by chunk parity
+  cg::cluster_group cluster = cg::this_cluster();
+  const int t = blockIdx.x / SPLIT;
+  const int sub = threadIdx.x / FWD_PIX;
+  const int lp = threadIdx.x - sub * FWD_PIX;
+  const int p = (int)cluster.block_rank() * FWD_PIX + lp;
   const float px = pixel_x(t, tiles_x, p);
   const float py = pixel_y(t, tiles_x, p);
   const long long start = starts[t];
   const int nchunks = counts[t] / CHUNK;
 
-  float T = 1.0f;
-  float acc[NCH];
+  if (nchunks > 0) stage_chunk(st, slot, S, start);
+  if (sub == 0) {
 #pragma unroll
-  for (int c = 0; c < NCH; ++c) acc[c] = 0.0f;
+    for (int c = 0; c < NCH; ++c) acc[c][lp] = 0.0f;
+  }
+  float T = 1.0f;  // sub-run 0's threads: the pixel's transmittance
 
   int ci = 0;
   for (; ci < nchunks; ++ci) {
-    // tile-wide vote; the barrier also keeps the last batch's readers
-    // ahead of the next load
-    if (!__syncthreads_or(T > T_EPS)) break;
-    load_chunk(sd, slot, S, start + (long long)ci * CHUNK);
+    if (ci > 0) {
+      // tile-wide vote at the chunk boundary: this block's pixels, then the
+      // cluster's four flags.  Flags alternate by chunk parity, so a block
+      // that runs ahead never overwrites one that another block has still
+      // to read.  The barrier also keeps the last walk ahead of the unstage.
+      const int mine = __syncthreads_or(sub == 0 && T > T_EPS);
+      if (threadIdx.x == 0) vote[ci & 1] = mine;
+      cluster.sync();
+      int any = 0;
+#pragma unroll
+      for (int r = 0; r < SPLIT; ++r) any |= *cluster.map_shared_rank(&vote[ci & 1], r);
+      if (!any) break;
+    }
+    wait_staged();
     __syncthreads();
-    for (int j = 0; j < CHUNK; ++j) {
+    unstage_chunk(sd, st);
+    __syncthreads();
+    // the next chunk's copy runs under this walk
+    if (ci + 1 < nchunks) stage_chunk(st, slot, S, start + (long long)(ci + 1) * CHUNK);
+
+    float P = 1.0f;
+    float C[NCH];
+#pragma unroll
+    for (int c = 0; c < NCH; ++c) C[c] = 0.0f;
+#pragma unroll 4
+    for (int j = sub * SUB; j < (sub + 1) * SUB; ++j) {
       const SlotEval s = eval_slot(sd, j, px, py);
       if (s.alpha == 0.0f) continue;
-      const float w = s.alpha * T;
+      const float w = s.alpha * P;
       float col[NCH];
       slot_colors(sd, j, col);
 #pragma unroll
-      for (int c = 0; c < NCH; ++c) acc[c] += w * col[c];
-      T *= 1.0f - s.alpha;
+      for (int c = 0; c < NCH; ++c) C[c] += w * col[c];
+      P *= 1.0f - s.alpha;
+    }
+    part[sub][0][lp] = P;
+#pragma unroll
+    for (int c = 0; c < NCH; ++c) part[sub][1 + c][lp] = C[c];
+    __syncthreads();
+    if (sub == 0) {
+      // the chunk's (P, C), sub-runs combined in order, applied to (T, acc)
+      float Pc = 1.0f;
+      float Cc[NCH];
+#pragma unroll
+      for (int c = 0; c < NCH; ++c) Cc[c] = 0.0f;
+#pragma unroll
+      for (int k = 0; k < SPLIT; ++k) {
+#pragma unroll
+        for (int c = 0; c < NCH; ++c) Cc[c] += Pc * part[k][1 + c][lp];
+        Pc *= part[k][0][lp];
+      }
+#pragma unroll
+      for (int c = 0; c < NCH; ++c) acc[c][lp] += T * Cc[c];
+      T *= Pc;
     }
   }
-  float* o = out + ((long long)t * PIX + p) * C_MAX;
-#pragma unroll
-  for (int c = 0; c < NCH; ++c) o[c] = acc[c];
-  o[C_MAX - 1] = 1.0f - T;
-  if (p == 0) stop[t] = ci;
+  wait_staged();  // a copy the vote dropped
+  if (sub == 0) {
+    float4* o = reinterpret_cast<float4*>(out + ((long long)t * PIX + p) * C_MAX);
+    o[0] = make_float4(acc[0][lp], acc[1][lp], acc[2][lp], acc[3][lp]);
+    o[1] = make_float4(acc[4][lp], acc[5][lp], acc[6][lp], 1.0f - T);
+  }
+  if (threadIdx.x == 0 && cluster.block_rank() == 0) stop[t] = ci;
+  // a block's flags must outlive the other blocks' reads of them
+  if (nchunks > 1) cluster.sync();
 }
 
 // ---- K2 stage 1: (P, Q) of one chunk, per pixel ---------------------------
@@ -389,10 +513,15 @@ extern "C" int artdeco_composite_fwd(const float* slot, long long S,
                                      int num_tiles, int tiles_x, float* out,
                                      int* stop, void* stream) {
   if (num_tiles > 0) {
-    composite_fwd_kernel<<<num_tiles, PIX, 0, (cudaStream_t)stream>>>(
+    composite_fwd_kernel<<<num_tiles * SPLIT, PIX, 0, (cudaStream_t)stream>>>(
         slot, S, starts, counts, tiles_x, out, stop);
   }
   return (int)cudaGetLastError();
+}
+
+// K1's launch shape (launch_info.cuh): threads, cluster size, registers, ...
+extern "C" int artdeco_composite_fwd_info(int* info) {
+  return launch_info(composite_fwd_kernel, PIX, SPLIT, info);
 }
 
 // ckpt: (S / CHUNK + num_tiles) * PIX float2 of scratch: the chunks'

@@ -41,7 +41,14 @@ SIGNATURES = {
     # p_out, score_out, stream
     "artdeco_refine": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float,
                        _P, _P, _P),
+    # info (7 ints; launch_info.cuh)
+    "artdeco_composite_fwd_info": (_P,),
+    # radius, info
+    "artdeco_refine_info": (_I, _P),
 }
+# what launch_info.cuh writes, in order
+INFO_KEYS = ("threads", "cluster", "registers", "spill_bytes", "shared_bytes",
+             "blocks_per_sm", "max_clusters")
 
 
 def _nvcc() -> str:
@@ -116,3 +123,13 @@ def check(err: int, what: str) -> None:
     """Raise when a launch returned a CUDA error code."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with error {err}")
+
+
+def launch_info(name: str, *args) -> dict:
+    """The launch shape of a kernel as the runtime reports it (``INFO_KEYS``;
+    -1 where the runtime refuses a query), from the library's ``name``
+    function: ``artdeco_composite_fwd_info()`` (K1) or
+    ``artdeco_refine_info(radius)`` (K3)."""
+    info = (ctypes.c_int * len(INFO_KEYS))()
+    check(getattr(load(), name)(*args, ctypes.cast(info, ctypes.c_void_p)), name)
+    return dict(zip(INFO_KEYS, info))

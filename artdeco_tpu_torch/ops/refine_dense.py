@@ -17,7 +17,8 @@ launch.  It gives the same positions; the claim pass and the loser drain
 
 Descriptors are rounded to bf16 (round to nearest even, as XLA's convert
 does); products of two bf16 values are exact in f32 and the 24-channel sums
-run in channel order, so K3 and ``window_argmax_plain`` agree bit for bit.
+run in channel order, so K3 (which adds each product with an FMA) and
+``window_argmax_plain`` (a multiply, then an add) agree bit for bit.
 XLA may sum in another order, so a near-tie can pick another offset there.
 """
 
@@ -29,6 +30,7 @@ from artdeco_tpu_torch import kernels
 
 FLT_MIN = 1.17549435e-38     # float32's smallest normal: the initial running max
 DESC_DIM = 24                # channels K3 is built for (MASt3R's and the oracle's)
+RADII = (2, 3, 4, 5)         # window radii K3 is built for (csrc/refine.cu)
 _CHUNK = 8192                # queries per gather chunk of the plain version
 
 
@@ -98,7 +100,8 @@ def window_argmax(D11b, D21b, p, valid, radius: int, d_max: int, d_min: int = 1,
     valid (n,) bool.  Searches levels d_max..d_min with the running max
     starting at ``init_score``; returns (p_new (n, 2) int32, running max
     (n,) f32).  Launches the CUDA kernel for CUDA tensors (counted in
-    ``window_argmax.launches``); the plain version for CPU tensors.
+    ``window_argmax.launches``; radii ``RADII``, others raise); the plain
+    version for CPU tensors.
 
     Replaces the Pallas ``_band_kernel`` (``artdeco_tpu/ops/refine_pallas.py``)."""
     _check_inputs(D11b, D21b, p, valid)
@@ -109,15 +112,19 @@ def window_argmax(D11b, D21b, p, valid, radius: int, d_max: int, d_min: int = 1,
     h, w, f = D11b.shape
     if f != DESC_DIM:
         raise ValueError(f"window_argmax: K3 is built for {DESC_DIM} channels, got {f}")
-    # 16-byte row loads: contiguous rows at an aligned base
-    D11b, D21b = (x if x.is_contiguous() and x.data_ptr() % 16 == 0 else x.clone()
-                  for x in (D11b, D21b))
+    if radius not in RADII:
+        raise ValueError(f"window_argmax: K3 is built for radii {RADII}, got {radius}")
+    # the image as three planes of 8 channels (one 16-byte load a pixel in
+    # each: a warp's load reads contiguous bytes); 16-byte query row loads
+    planes = D11b.reshape(h, w, 3, f // 3).permute(2, 0, 1, 3).contiguous()
+    if not D21b.is_contiguous() or D21b.data_ptr() % 16:
+        D21b = D21b.clone()
     p, valid = p.contiguous(), valid.contiguous()
     n = p.shape[0]
     p_out = torch.empty_like(p)
     score = torch.empty(n, dtype=torch.float32, device=p.device)
     err = kernels.load().artdeco_refine(
-        D11b.data_ptr(), D21b.data_ptr(), p.data_ptr(), valid.data_ptr(), n, h, w,
+        planes.data_ptr(), D21b.data_ptr(), p.data_ptr(), valid.data_ptr(), n, h, w,
         radius, d_max, d_min, init_score, p_out.data_ptr(), score.data_ptr(),
         torch.cuda.current_stream(p.device).cuda_stream)
     kernels.check(err, "window_argmax")

@@ -5,9 +5,10 @@ become hand-written CUDA kernels for Hopper (``csrc/composite.cu``):
 
 * K1 ``composite_fwd`` replaces ``_fwd_kernel`` (``tile_composite`` /
   ``_fwd_impl``): front-to-back compositing of each 16x16 tile's
-  depth-sorted slots, one block per tile, one thread per pixel, with the
-  tile-wide early-out voted once per 128-slot chunk.  It also returns each
-  tile's stop chunk (the number of chunks it composited).
+  depth-sorted slots, a cluster of four blocks per tile, each chunk's walk
+  split into four sub-runs whose (transmittance, colour) pairs are combined
+  in order, with the tile-wide early-out voted once per 128-slot chunk.  It
+  also returns each tile's stop chunk (the number of chunks it composited).
 * K2 ``composite_bwd`` replaces ``_bwd_kernel`` (``_bwd_rule``): the
   recompute backward, split at chunk boundaries into per-chunk summaries,
   a scan per tile into checkpoints, and pass B per chunk from its
@@ -139,8 +140,9 @@ def composite_fwd(slot_data, pad_starts, pad_counts, tiles_x, tiles_y):
 
     Replaces the Pallas ``_fwd_kernel`` (``artdeco_tpu/ops/splat/
     composite.py``).  On the H100 it is bound by each pixel's exp and FMAs
-    per slot, not by memory: a 128-slot batch (8 KB) is staged in shared
-    memory once and read by all 256 pixels of the tile."""
+    per slot and their serial chain, not by memory: each 128-slot chunk
+    (8 KB) is copied into shared memory and read by all 256 pixels, and its
+    walk is split over four threads per pixel."""
     _check_inputs(slot_data, pad_starts, pad_counts, tiles_x, tiles_y)
     if slot_data.device.type == "cpu":
         return composite_fwd_plain(slot_data, pad_starts, pad_counts,
@@ -149,6 +151,12 @@ def composite_fwd(slot_data, pad_starts, pad_counts, tiles_x, tiles_y):
         raise ValueError(f"composite_fwd: unsupported device {slot_data.device}")
     num_tiles = tiles_x * tiles_y
     slot_data = slot_data.contiguous()
+    S = slot_data.shape[1]
+    if S % 4 or slot_data.data_ptr() % 16:
+        # the chunks are copied 16 bytes at a time: rows start 16-byte aligned
+        padded = slot_data.new_zeros(D_PAIR, S + -S % 4)
+        padded[:, :S] = slot_data
+        slot_data = padded
     out = torch.empty(num_tiles, PIX, C_MAX, device=slot_data.device)
     stop = torch.empty(num_tiles, dtype=torch.int32, device=slot_data.device)
     lib = kernels.load()

@@ -19,7 +19,12 @@
 * ``_match_cascade``: equal match indices on >= 99.9 % of pixels, equal
   validity.  Without descriptors (``match_pi3``) nothing snaps the
   truncated LM positions: within one pixel.
-* on the card (``cuda`` marker): K3 against its plain version, exactly.
+* K3 adds each product with an FMA: the premise that this is exact (a
+  product of two bf16 values is exact in f32, so an FMA rounds as the
+  plain version's multiply and add do) is checked here on bf16 values as
+  far as 2^-20 and 2^20 apart.
+* on the card (``cuda`` marker): K3 against its plain version, exactly, at
+  every radius it is built for; other radii raise.
 """
 
 import jax
@@ -202,6 +207,48 @@ def test_match_cascade_matches_jax(with_init):
     assert du.max() <= 1 and dv.max() <= 1
 
 
+def test_fma_chain_is_the_plain_score():
+    """Random bf16 descriptors, a quarter of the channels scaled by 2^+-20
+    or 2^+-19: every f32 product of two of them equals the float64 product,
+    and the channel-order sum that adds each exact product in f32 (what
+    K3's chain of fmaf computes) equals the plain version's score bit for
+    bit, at every query of a radius-1 search (running max from -inf; out-
+    of-image samples score 0)."""
+    rng = np.random.default_rng(4)
+    h, w, f, nq = 6, 7, 24, 64
+
+    def bf16(shape):
+        x = rng.normal(size=shape) * 2.0 ** rng.choice([-20, -19, 0, 19, 20], size=shape,
+                                                       p=[0.125, 0.125, 0.5, 0.125, 0.125])
+        return t(x.astype(np.float32)).to(torch.bfloat16)
+
+    D11b, D21b = bf16((h, w, f)), bf16((nq, f))
+    p = t(np.stack([rng.integers(0, w, nq), rng.integers(0, h, nq)], -1), torch.int32)
+    r64, g64 = n(D11b.double()), n(D21b.double())
+    # every (image row, query) pair, channel by channel
+    a, b = n(D11b.float()).reshape(-1, 1, f), n(D21b.float())[None]
+    np.testing.assert_array_equal((a * b).astype(np.float64),
+                                  a.astype(np.float64) * b.astype(np.float64))
+
+    u, v = n(p[:, 0]), n(p[:, 1])
+    scores = np.zeros((nq, 9), np.float32)        # (i, j), i (u) outer
+    for i in range(3):
+        for j in range(3):
+            uu, vv = u - 1 + i, v - 1 + j
+            inside = (uu >= 0) & (uu < w) & (vv >= 0) & (vv < h)
+            prod = r64[vv.clip(0, h - 1), uu.clip(0, w - 1)] * g64   # exact
+            s = np.zeros(nq, np.float32)
+            for c in range(f):
+                s = s + prod[:, c].astype(np.float32)            # one f32 rounding
+            scores[:, 3 * i + j] = np.where(inside, s, np.float32(0.0))
+    best = scores.argmax(-1)                      # the first max
+    pp, sp = RD.window_argmax_plain(D11b, D21b, p, torch.ones(nq, dtype=torch.bool), 1, 1,
+                                    1, float("-inf"))
+    np.testing.assert_array_equal(n(sp).view(np.uint32),
+                                  scores[np.arange(nq), best].view(np.uint32))
+    np.testing.assert_array_equal(n(pp), np.stack([u - 1 + best // 3, v - 1 + best % 3], -1))
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -210,16 +257,30 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-def test_k3_matches_plain_version_on_card(cuda_device):
+@pytest.mark.parametrize("radius", RD.RADII)
+def test_k3_matches_plain_version_on_card(cuda_device, radius):
+    """K3 at each radius it is built for, bitwise equal to its plain
+    version in positions and scores."""
     for case in ("random-colliding", "oracle"):
         D11, D21, p1, valid = CASES[case]
         valid = np.ones(len(p1), bool) if valid is None else valid
         args = [t(D11).to(torch.bfloat16), t(D21).to(torch.bfloat16), t(p1, torch.int32),
                 t(valid)]
         before = RD.window_argmax.launches
-        pk, sk = RD.window_argmax(*[a.to(cuda_device) for a in args], 4, 5)
-        pp, sp = RD.window_argmax_plain(*args, 4, 5, 1, RD.FLT_MIN)
+        pk, sk = RD.window_argmax(*[a.to(cuda_device) for a in args], radius, 5)
+        pp, sp = RD.window_argmax_plain(*args, radius, 5, 1, RD.FLT_MIN)
         torch.cuda.synchronize()
         assert RD.window_argmax.launches == before + 1
         np.testing.assert_array_equal(n(pk), n(pp))
-        np.testing.assert_array_equal(n(sk), n(sp))
+        np.testing.assert_array_equal(n(sk).view(np.uint32), n(sp).view(np.uint32))
+
+
+@pytest.mark.cuda
+def test_k3_refuses_radii_it_is_not_built_for(cuda_device):
+    D11, D21, p1, valid = CASES["random"]
+    args = [t(D11).to(torch.bfloat16), t(D21).to(torch.bfloat16), t(p1, torch.int32),
+            t(valid)]
+    before = RD.window_argmax.launches
+    with pytest.raises(ValueError, match="radii"):
+        RD.window_argmax(*[a.to(cuda_device) for a in args], max(RD.RADII) + 1, 5)
+    assert RD.window_argmax.launches == before

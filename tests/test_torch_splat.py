@@ -273,6 +273,23 @@ def _edge_case(case):
     elif case == "never_stops":
         runs[0] = _tile_gaussians(rng, 384, 0, opacity=(0.01, 0.04), sigma=(1.0, 2.0))
         want = lambda stop, nch: stop == nch == 3
+    elif case == "one_sub_run":
+        # every hit of chunk 0 lies in its third 32-slot sub-run, every hit
+        # of chunk 1 in its first: K1 combines empty sub-runs around them
+        runs[0] = np.zeros((16, 256), np.float32)
+        runs[0][:, 64:96] = _tile_gaussians(rng, 32, 0, **usual)
+        runs[0][:, 128:160] = _tile_gaussians(rng, 32, 0, **usual)
+        want = lambda stop, nch: stop == nch == 2
+    elif case == "alpha_clamp":
+        # opaque Gaussians wide enough that alpha sits at the 0.999 clamp
+        # over part of the tile, then ordinary ones
+        front = _tile_gaussians(rng, 3, 0, opacity=(1.0, 1.0), sigma=(60.0, 120.0))
+        runs[0] = np.concatenate([front, _tile_gaussians(rng, 380, 0, **usual)], 1)
+        want = lambda stop, nch: 1 <= stop <= nch == 3
+    elif case == "long_run":
+        # six chunks of faint Gaussians: five votes, none stops the tile
+        runs[0] = _tile_gaussians(rng, 700, 0, opacity=(0.01, 0.04), sigma=(1.0, 2.0))
+        want = lambda stop, nch: stop == nch == 6
     else:  # multi_chunk: the vote stops inside a long run, the last of the matrix
         k, tail = 2, 0
         runs[2] = _tile_gaussians(rng, 768, 2, opacity=(0.1, 0.5), sigma=(1.5, 3.5))
@@ -285,7 +302,35 @@ def _edge_case(case):
     return sd, starts, counts, 3, 1, k, want
 
 
-EDGE_CASES = ["empty_run", "stop_at_chunk_1", "never_stops", "multi_chunk"]
+EDGE_CASES = ["empty_run", "stop_at_chunk_1", "never_stops", "multi_chunk",
+              "one_sub_run", "alpha_clamp", "long_run"]
+
+
+def _first_chunk_alpha(sd, ps, pc, tx, ty, k):
+    """Alpha (PIX, CHUNK) of tile k's first chunk, by the plain version."""
+    num_tiles = tx * ty
+    px, py = tcomp._pix_coords(num_tiles, tx, "cpu")
+    d, _ = tcomp._gather_chunk(t(sd), t(ps), 0, t(pc) > 0)
+    return n(tcomp._chunk_alpha(d, px, py)[0][k])
+
+
+@pytest.mark.parametrize("case", EDGE_CASES)
+def test_composite_forward_edge_cases_match_jax(case):
+    """The runs of K1's edge cases (a stop after the first chunk, hits in
+    one 32-slot sub-run, alpha at the 0.999 clamp, runs of more than four
+    chunks) composited by the plain version and by the Pallas kernel, with
+    the expected stop chunk."""
+    sd, ps, pc, tx, ty, k, want = _edge_case(case)
+    tout, stop = tcomp.composite_fwd_plain(t(sd), t(ps), t(pc), tx, ty)
+    assert want(int(stop[k]), int(pc[k]) // 128), (case, n(stop), pc)
+    jout = jcomp.tile_composite(jnp.asarray(sd), jnp.asarray(ps), jnp.asarray(pc), tx, ty)
+    np.testing.assert_allclose(n(tout), n(jout), atol=1e-5)
+    if case == "one_sub_run":
+        a = _first_chunk_alpha(sd, ps, pc, tx, ty, k)
+        assert a[:, 64:96].max() > 0 and a[:, :64].max() == 0 and a[:, 96:].max() == 0
+    if case == "alpha_clamp":
+        a = _first_chunk_alpha(sd, ps, pc, tx, ty, k)
+        assert (a == np.float32(tcomp.ALPHA_CLAMP)).sum() >= 10
 
 
 @pytest.mark.parametrize("case", EDGE_CASES)
@@ -355,7 +400,9 @@ def cuda_device():
 @pytest.mark.cuda
 def test_kernels_match_plain_versions_on_card(cuda_device):
     """K1/K2 against their plain PyTorch versions on the same card inputs:
-    a random scene, a dense one with multi-chunk runs, and K2's edge cases.
+    a random scene, a dense one with multi-chunk runs, and the edge cases
+    (K2's, and K1's: a stop after one chunk, hits in one sub-run, alpha at
+    the clamp, a run of six chunks).
     Forward 1e-4 absolute on RGB/alpha (products in another order) and the
     same stop chunks; the backward, given K1's stop chunks, sums each slot
     over 256 pixels in a fixed tree, the plain version in matmul order:
