@@ -7,10 +7,13 @@ never ``jax``, nor the JAX package: its host-side inputs
 ``SyntheticDataset``) are its own copies, held to the originals by the
 parity tests.
 
-Ported so far: the online mapper (``mapper/``), its rasterizer
-(``ops/splat/``) with the tile compositor as hand-written CUDA kernels
-(``csrc/composite.cu``), and the mapper half of the runtime
-(``runtime/system.MapperStage``).
+Ported so far: the whole single-host system on the oracle runner
+(``runtime/system.System``, entry point ``run_system``): the tracking
+frontend with the matching cascade and the refine kernel (``csrc/refine.cu``),
+the backend (``vslam/backend.py``, ``vslam/global_opt.py``,
+``vslam/retrieval.py``), and the online mapper (``mapper/``) with its
+rasterizer (``ops/splat/``) and the tile compositor as hand-written CUDA
+kernels (``csrc/composite.cu``).
 """
 
 __version__ = "0.1.0"

@@ -10,7 +10,8 @@ their intrinsics.
   only cropped, as OpenCV's resize to the same size copies it; other
   sizes are resampled with PyTorch (area when shrinking, bicubic when
   growing), which is close to OpenCV's but not bit-equal.
-* map stream: at the original resolution (no downsampling), with K_map.
+* map stream: downsampled by an integer ``downsample_map`` (an area
+  average with OpenCV's rounding for uint8 frames), with K_map.
 """
 
 from __future__ import annotations
@@ -50,7 +51,7 @@ class PinholeCamera:
     """Dual-resolution camera transform without lens distortion."""
 
     def __init__(self, target_size_slam: int, W_original: int, H_original: int,
-                 calib_parameter):
+                 calib_parameter, downsample_map: float = 1.0):
         fx, fy, cx, cy = calib_parameter  # pinhole only: no distortion terms
         K = np.asarray([[fx, 0, cx], [0, fy, cy], [0, 0, 1]], np.float64)
         self.K_best = optimal_new_camera_matrix(K, W_original, H_original).astype(np.float32)
@@ -64,8 +65,15 @@ class PinholeCamera:
         K_slam[1, 2] = K_slam[1, 2] / sh - hch
         self.K_slam = K_slam.astype(np.float32)
 
-        self.K_map = self.K_best.copy()
-        self.H_map, self.W_map = H_original, W_original
+        if downsample_map != int(downsample_map) or downsample_map < 1:
+            raise NotImplementedError(
+                f"map downsampling {downsample_map}: only integer factors are ported")
+        K_map = self.K_best.copy()
+        K_map[:2] /= downsample_map
+        self.K_map = K_map.astype(np.float32)
+        self.downsample_map = int(downsample_map)
+        self.H_map = int(round(H_original / downsample_map))
+        self.W_map = int(round(W_original / downsample_map))
         self.target_size = target_size_slam
 
     def to_slam(self, img: np.ndarray) -> np.ndarray:
@@ -90,6 +98,16 @@ class PinholeCamera:
 
     def to_map(self, img: np.ndarray) -> np.ndarray:
         """(H, W, 3) uint8/float -> (3, H_map, W_map) f32 in [0, 1]."""
+        k = self.downsample_map
+        if k > 1:
+            h, w = self.H_map * k, self.W_map * k
+            blocks = img[:h, :w].reshape(self.H_map, k, self.W_map, k, -1)
+            if img.dtype == np.uint8:
+                # OpenCV's INTER_AREA at an integer factor: the rounded mean
+                s = blocks.astype(np.int64).sum(axis=(1, 3))
+                img = ((s * 2 + k * k) // (2 * k * k)).astype(np.uint8)
+            else:
+                img = blocks.astype(np.float32).mean(axis=(1, 3))
         if img.dtype == np.uint8:
             img = img.astype(np.float32) / 255.0
         return img.astype(np.float32).transpose(2, 0, 1)

@@ -2,7 +2,9 @@
 
 Port of ``SyntheticDataset`` from ``artdeco_tpu/dataio/dataset.py``: the
 procedural textured-plane flythrough, with the same frames, ground-truth
-poses, intrinsics and test split.  Host-only (numpy).
+poses, intrinsics and test split.  Host-only (numpy).  ``load_dataset``
+is the factory; the real-image datasets (TUM, COLMAP, self-captured) are
+not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -18,8 +20,9 @@ class SyntheticDataset:
     """Procedural textured-plane flythrough (no files needed).
 
     ``args`` supplies ``test_hold`` (every test_hold-th frame but the
-    first is a held-out test frame; <= 0 for none) and ``max_size_slam``
-    (the SLAM stream's long edge).  The focal length is 0.8 * width.
+    first is a held-out test frame; <= 0 for none), ``max_size_slam``
+    (the SLAM stream's long edge) and ``downsampling`` (the map stream's
+    integer factor, default 1).  The focal length is 0.8 * width.
     """
 
     def __init__(self, args, n_frames: int = 30, width: int = 320, height: int = 240):
@@ -44,7 +47,8 @@ class SyntheticDataset:
 
         focal = 0.8 * width
         self.transform = PinholeCamera(getattr(args, "max_size_slam", 512), width, height,
-                                       [focal, focal, width / 2, height / 2])
+                                       [focal, focal, width / 2, height / 2],
+                                       getattr(args, "downsampling", 1.0))
         self.H, self.W = height, width
         self.H_slam, self.W_slam = self.transform.H_slam, self.transform.W_slam
         self.H_map, self.W_map = self.transform.H_map, self.transform.W_map
@@ -72,3 +76,14 @@ class SyntheticDataset:
         info = dict(self.infos[self.image_name_list[index]])
         info["Twc_gt"] = self.Twc_gt[index]
         return img, info
+
+
+def load_dataset(args):
+    """The dataset ``args.dataset_name`` names (the JAX package's factory);
+    only ``synthetic`` is ported."""
+    name = getattr(args, "dataset_name", "selfCaptured")
+    if name == "synthetic":
+        return SyntheticDataset(args)
+    raise NotImplementedError(
+        f"dataset {name!r}: only the synthetic dataset is ported; the real-image "
+        "datasets and the native loader wait (ROADMAP.md, queue 1)")

@@ -18,6 +18,7 @@ import dataclasses
 
 import torch
 
+from artdeco_tpu_torch.geometry import lie
 from artdeco_tpu_torch.ops import adam
 
 
@@ -143,6 +144,26 @@ def decay_xyz_lr(slab: GaussianSlab, visibility: torch.Tensor, decay: float,
     new_lr = adam.decay_lr_masked(slab.xyz_lr, visibility & slab.active,
                                   decay, lr_min)
     return dataclasses.replace(slab, xyz_lr=new_lr)
+
+
+@torch.no_grad()
+def rigid_transform(slab: GaussianSlab, old_c2w: torch.Tensor,
+                    new_c2w: torch.Tensor) -> GaussianSlab:
+    """Per-keyframe pose corrections applied to the Gaussians (loop
+    closure): each Gaussian moves by new[kf] @ inv(old[kf]) of its
+    keyframe; old_c2w/new_c2w (Kf, 4, 4) camera-to-world."""
+    old = old_c2w[slab.kf_id.long()]
+    new = new_c2w[slab.kf_id.long()]
+    R_o, t_o = old[:, :3, :3], old[:, :3, 3]
+    R_n, t_n = new[:, :3, :3], new[:, :3, 3]
+    R_d = R_n @ R_o.transpose(-1, -2)
+    t_d = t_n - torch.einsum("nij,nj->ni", R_d, t_o)
+    new_xyz = torch.einsum("nij,nj->ni", R_d, slab.xyz) + t_d
+    # rotate the quaternion (wxyz): q_new = q(R_d) * q
+    q_xyzw = torch.cat([slab.rotation[:, 1:4], slab.rotation[:, 0:1]], dim=-1)
+    q_new = lie.quat_mul(lie.matrix_to_quat(R_d), q_xyzw)
+    new_rot = torch.cat([q_new[:, 3:4], q_new[:, 0:3]], dim=-1)
+    return dataclasses.replace(slab, xyz=new_xyz, rotation=new_rot)
 
 
 def grow(slab: GaussianSlab, opt: SlabOptState, new_capacity: int):

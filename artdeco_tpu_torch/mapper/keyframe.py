@@ -73,9 +73,19 @@ def register_keyframe(pool: KeyframePool, idx: int, Rt_w2c: torch.Tensor,
     the exposure is inherited from keyframe idx-1 (identity for 0)."""
     expo = (pool.exposure[idx - 1].clone() if idx > 0
             else torch.eye(3, 4, device=pool.exposure.device))
+    return set_keyframe(pool, idx, Rt_w2c, expo, lr_pose, lr_exposure,
+                        depth_loss_weight, is_test)
+
+
+@torch.no_grad()
+def set_keyframe(pool: KeyframePool, idx: int, Rt_w2c: torch.Tensor,
+                 exposure: torch.Tensor, lr_pose: float, lr_exposure: float,
+                 depth_loss_weight: float, is_test: bool) -> KeyframePool:
+    """Register/overwrite keyframe ``idx`` in place with an explicit
+    exposure (3, 4); its Adam moments restart from zero."""
     pool.r_w2c[idx] = Rt_w2c[:3, :2]
     pool.t_w2c[idx] = Rt_w2c[:3, 3]
-    pool.exposure[idx] = expo
+    pool.exposure[idx] = exposure
     pool.lr_pose[idx] = lr_pose
     pool.lr_exposure[idx] = lr_exposure
     pool.depth_loss_weight[idx] = depth_loss_weight
@@ -85,6 +95,23 @@ def register_keyframe(pool: KeyframePool, idx: int, Rt_w2c: torch.Tensor,
         st.exp_avg[idx] = 0.0
         st.exp_avg_sq[idx] = 0.0
     return pool
+
+
+def get_all_Rt(pool: KeyframePool) -> torch.Tensor:
+    """(K, 4, 4) world->cam of every pool slot."""
+    R = sixd_to_mtx(pool.r_w2c)
+    top = torch.cat([R, pool.t_w2c[..., None]], dim=-1)
+    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], device=R.device).expand(R.shape[0], 1, 4)
+    return torch.cat([top, bottom], dim=1)
+
+
+def get_all_c2w(pool: KeyframePool) -> torch.Tensor:
+    """(K, 4, 4) cam->world of every pool slot (the rigid inverse)."""
+    Rt = get_all_Rt(pool)
+    Rinv = Rt[:, :3, :3].transpose(-1, -2)
+    tinv = -torch.einsum("kij,kj->ki", Rinv, Rt[:, :3, 3])
+    top = torch.cat([Rinv, tinv[..., None]], dim=-1)
+    return torch.cat([top, Rt[:, 3:]], dim=1)
 
 
 def compose_Rt(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:

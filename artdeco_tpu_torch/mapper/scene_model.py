@@ -17,8 +17,10 @@ source it is given (a ``torch.Generator`` on the device by default).
 Left out, being TPU-only machinery: AOT prewarm and growth hooks, the
 visible-set compaction budget, the multi-chip paths and the jit wrappers.
 The training bucket ``_train_len`` stays: the slab length it selects
-enters the loss through the mean scaling regulariser.  Loop-closure rigid
-transforms wait for the port of ``geometry/lie.py``.
+enters the loss through the mean scaling regulariser.  Loop closure moves
+the keyframe poses (``set_keyframe_poses_masked``) and the Gaussians with
+them (``rigid_transform_gs``); ``save`` writes the scene
+(``mapper/scene_io.py``).
 """
 
 from __future__ import annotations
@@ -491,6 +493,11 @@ class SceneModel:
         self._np_rng = np.random.RandomState(seed)
         self._active_ids: list[int] = []
         self._has_gaussians = False
+        self.inference_mode = False
+        # calls that launch the compositor: one forward each, and a backward
+        # for each training step
+        self.n_train_steps = 0
+        self.n_renders = 0
 
     def load_state(self, state) -> None:
         """Adopt a carried-over state (``state_io.scene_state_from_numpy``)."""
@@ -542,12 +549,28 @@ class SceneModel:
                 kf.point_map = kf.point_map.cpu()
                 kf.point_conf = kf.point_conf.cpu()
 
+    @torch.no_grad()
+    def set_keyframe_pose(self, idx: int, Rt_w2c) -> None:
+        Rt = torch.as_tensor(np.asarray(Rt_w2c, np.float32), device=self.device)
+        self.pool.r_w2c[idx] = Rt[:3, :2]
+        self.pool.t_w2c[idx] = Rt[:3, 3]
+
+    @torch.no_grad()
+    def set_keyframe_poses_masked(self, Rt_w2c_cap: torch.Tensor, mask_cap: torch.Tensor):
+        """Pose writeback of every slot where ``mask_cap`` (cap,) holds, from
+        ``Rt_w2c_cap`` (cap, 4, 4), in one batched update."""
+        m = mask_cap.to(self.device)
+        Rt = Rt_w2c_cap.to(self.device, torch.float32)
+        self.pool.r_w2c.copy_(torch.where(m[:, None, None], Rt[:, :3, :2], self.pool.r_w2c))
+        self.pool.t_w2c.copy_(torch.where(m[:, None], Rt[:, :3, 3], self.pool.t_w2c))
+
     # -- rendering -------------------------------------------------------
     @torch.no_grad()
     def render_from_id(self, keyframe_id: int, pyr_lvl: int = 0, bg=None) -> dict:
         if bg is None:
             bg = torch.zeros(3, device=self.device)
         s = 2 ** pyr_lvl
+        self.n_renders += 1
         return render_core(
             self.slab.prefix(self._train_len), self.gfeat.val, self.mlp,
             KF.get_Rt(self.pool, keyframe_id), self.pool.exposure[keyframe_id],
@@ -602,6 +625,7 @@ class SceneModel:
         )
         self.slab = _stitch(self.slab, sub)
         self.opt = _stitch(self.opt, sub_opt)
+        self.n_train_steps += 1
         return metrics
 
     def optimization_loop(self, n_iters: int, is_important: bool = True,
@@ -688,6 +712,22 @@ class SceneModel:
                          self.cfg.visible_threshold)
         self._prune_prefix(keep)
 
+    # -- loop closure ----------------------------------------------------
+    def rigid_transform_gs(self, old_c2ws, new_c2ws) -> None:
+        """Move every Gaussian with its keyframe's pose correction; old/new
+        (Kf, 4, 4) camera-to-world, Kf >= the keyframe count (rows past
+        Kf are identity)."""
+        cap = self.cfg.keyframe_capacity
+        old = torch.as_tensor(old_c2ws, dtype=torch.float32, device=self.device)
+        new = torch.as_tensor(new_c2ws, dtype=torch.float32, device=self.device)
+        if old.shape[0] != cap or new.shape[0] != cap:
+            eye = torch.eye(4, device=self.device).repeat(cap, 1, 1)
+            o, n_ = eye.clone(), eye.clone()
+            o[: old.shape[0]] = old
+            n_[: new.shape[0]] = new
+            old, new = o, n_
+        self.slab = G.rigid_transform(self.slab, old, new)
+
     # -- evaluation ------------------------------------------------------
     @torch.no_grad()
     def harmonize_test_exposure(self):
@@ -721,3 +761,27 @@ class SceneModel:
         metrics = {k: v / n_test for k, v in metrics.items()} if n_test else {}
         metrics["n_test_frames"] = n_test
         return metrics
+
+    # -- finetuning / inference -------------------------------------------
+    def finetune_epoch(self):
+        """Reset the optimizer states and learning rates, then one pass of
+        random keyframe replay as long as the keyframe count."""
+        cfg = self.cfg
+        self.opt = G.create_opt_state(self.slab)
+        self.slab = dataclasses.replace(
+            self.slab, xyz_lr=torch.full((self.slab.capacity,), cfg.position_lr_init,
+                                         device=self.device))
+        self.mlp_opt = {k: adam.init_state(getattr(self.mlp, k)) for k in MLP_KEYS}
+        self.mlp_lr = torch.tensor(cfg.mlp_cov_lr_init, device=self.device)
+        self.gfeat = GlobalFeats(val=self.gfeat.val,
+                                 lr=torch.full_like(self.gfeat.lr, cfg.feat_lr),
+                                 opt=adam.init_state(self.gfeat.val))
+        self.optimization_loop(len(self.keyframes), finetuning=True)
+
+    def enable_inference_mode(self):
+        self.inference_mode = True
+
+    def save(self, path: str, reconstruction_time: float = 0.0, n_frames: int = 0) -> dict:
+        from artdeco_tpu_torch.mapper.scene_io import save_scene
+
+        return save_scene(self, path, reconstruction_time, n_frames)

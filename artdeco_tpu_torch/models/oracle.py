@@ -8,16 +8,18 @@ every match then runs on device tensors, as the real model's outputs
 would.
 
 Frame lookup: ``register`` keys a frame by the sha1 of its host SLAM
-image.  The frontend uploads each image once and ``bind``s the device
-tensor to its host copy, so a tracked frame finds its id through the
-identity of the tensor (weakref-checked) and never pulls an image back
-from the card; ``d2h_lookups`` counts the lookups that had to.  The
+image.  The frontend (or the system's upload thread) uploads each image
+once and ``bind``s the device tensor to its host copy, so a frame finds
+its id through the identity of the tensor (weakref-checked, kept while
+the tensor lives) and never pulls an image back from the card;
+``d2h_lookups`` counts the lookups that had to.  The
 embedding "token" (feat, pos) that carries a frame id stays on the host.
 """
 
 from __future__ import annotations
 
 import hashlib
+import threading
 import weakref
 from typing import Dict, Tuple
 
@@ -55,6 +57,8 @@ class OracleRunner:
         self._dev_cache: dict = {}
         self._conf_dev = None
         self._by_id: Dict[int, tuple] = {}
+        self._lock = threading.RLock()     # bind runs on the upload thread
+        self._q_cache: dict = {}
         self.d2h_lookups = 0
 
     # -- registration -------------------------------------------------------
@@ -71,9 +75,18 @@ class OracleRunner:
         self._remember(img_dev, self._by_hash[_host_key(img_host)])
 
     def _remember(self, img, fid: int) -> None:
-        self._by_id[id(img)] = (weakref.ref(img), fid)
-        if len(self._by_id) > 64:
-            self._by_id.pop(next(iter(self._by_id)))
+        # an entry lives as long as its tensor: a work item may use a frame's
+        # image long after it was uploaded (the mapper worker lags tracking)
+        key = id(img)
+
+        def forget(ref, key=key):
+            with self._lock:
+                hit = self._by_id.get(key)
+                if hit is not None and hit[0] is ref:
+                    del self._by_id[key]
+
+        with self._lock:
+            self._by_id[key] = (weakref.ref(img, forget), fid)
 
     def _fid(self, img) -> int:
         hit = self._by_id.get(id(img))
@@ -202,3 +215,32 @@ class OracleRunner:
         C = self._conf_device()
         feat, pos = self._token(fi)
         return idx, valid, Xii, C, C, Xji, C, C, feat, pos
+
+    def match_symmetric(self, feat_i, pos_i, feat_j, pos_j, hw):
+        """Both directions of every edge (i, j) in one batched match: rows
+        [0, b) match frame j's pixels into frame i, rows [b, 2b) frame i's
+        into frame j, so K3 runs once per row.  Returns (idx_i2j, idx_j2i,
+        valid_j, valid_i, Qii, Qjj, Qji, Qij)."""
+        h, w = hw
+        b = feat_i.shape[0]
+        fis = [int(feat_i[e, 0, 0]) for e in range(b)]
+        fjs = [int(feat_j[e, 0, 0]) for e in range(b)]
+        d = self._dev(fis[0])[1].shape[-1]
+        X11 = torch.stack([self._dev(f)[0] for f in fis + fjs]).reshape(2 * b, h, w, 3)
+        X21 = torch.stack([self._cross_dev(fj, fi) for fi, fj in zip(fis, fjs)]
+                          + [self._cross_dev(fi, fj) for fi, fj in zip(fis, fjs)]
+                          ).reshape(2 * b, h, w, 3)
+        D11 = torch.stack([self._dev(f)[1] for f in fis + fjs]).reshape(2 * b, h, w, d)
+        D21 = torch.stack([self._dev(f)[1] for f in fjs + fis]).reshape(2 * b, h, w, d)
+        idx, valid = matching.match(self.match_cfg, X11, X21, D11, D21)
+        Qc = self._q_const(b)
+        return idx[:b], idx[b:], valid[:b], valid[b:], Qc, Qc, Qc, Qc
+
+    def _q_const(self, b: int):
+        """(b, HW, 1) of the constant match confidence (cached per b)."""
+        hit = self._q_cache.get(b)
+        if hit is None:
+            hit = torch.full((b, self.h * self.w, 1), self.conf_value,
+                             dtype=torch.float32, device=self.device)
+            self._q_cache[b] = hit
+        return hit

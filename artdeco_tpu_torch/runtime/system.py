@@ -1,25 +1,54 @@
-"""The mapper half of the streaming system.
+"""End-to-end on-the-fly reconstruction system.
 
-Port of the mapper stage of ``artdeco_tpu/runtime/system.py``:
-``MapperStage.handle`` is ``System._handle_mapper_msg`` (keyframe ingest,
-densify on important frames, a training burst) and ``MapperStage.metrics``
-is the metric part of ``System.save``.  It takes the backend's mapper
-message dicts unchanged, so the later port of ``System`` drives it as it
-is.  Tracking, the backend and loop-closure rigid transforms are not
-ported yet.
+Port of ``artdeco_tpu/runtime/system.py``: one host process drives
+track -> backend -> map per frame (``System.run``).  By default the
+mapper-facing half (the backend's ``process_async`` and the mapper) runs on
+a worker thread, overlapping tracking, with the hard-sync keyframe barrier
+kept: everything the tracker reads is written on the main thread, so the
+trajectory is the sequential schedule's.  A background thread decodes
+frames and another uploads each SLAM image from pinned memory a few frames
+ahead of tracking.
+
+Streams: the worker shares the main thread's CUDA stream (the device's
+default stream), so its work is ordered against tracking's without events
+and no tensor handed between the threads needs ``record_stream``.  The
+upload thread copies on a stream of its own and waits for each copy to land
+before it hands the tensor over; the tensor is recorded on the default
+stream, where it is used.  Work items hold value snapshots: Frames and
+their tensors are never written in place (the keyframe store replaces
+them), and poses are copies.
+
+``MapperStage`` is the mapper half alone (keyframe ingest, loop-closure
+rigid transforms, densify, training bursts, metrics): ``System`` drives it
+with the backend's messages, and the mapper-only runs drive it with
+``exact_mapper_messages``.
+
+Not ported: the native C++ loader, the ``--n_devices`` mesh, the viewers
+and the AOT prewarm machinery.
 """
 
 from __future__ import annotations
 
+import contextlib
+import json
+import os
+import queue
+import threading
 import time
+from typing import Optional
 
 import numpy as np
 import torch
 
 from artdeco_tpu_torch.device import resolve
+from artdeco_tpu_torch.geometry import lie
+from artdeco_tpu_torch.mapper import keyframe as KF
 from artdeco_tpu_torch.mapper.config import MapperConfig
 from artdeco_tpu_torch.mapper.keyframe import make_device_keyframe
 from artdeco_tpu_torch.mapper.scene_model import SceneModel
+from artdeco_tpu_torch.vslam.backend import Backend
+from artdeco_tpu_torch.vslam.frontend import Frontend
+from artdeco_tpu_torch.vslam.keyframes import KeyframeStore
 
 METRIC_KEYS = ("PSNR", "SSIM", "Render", "GS", "n_test_frames")
 
@@ -89,37 +118,80 @@ def exact_mapper_messages(dataset, important_every: int = 2,
         }
 
 
+def rigid_transform_poses(pool: KF.KeyframePool, slam_T, TCkC, is_kf, mask):
+    """Loop-closure pose recomputation at keyframe capacity: the mapper
+    keyframes' new world->cam 4x4s from their SLAM keyframe poses (times
+    the relative pose T_CkC for mapper frames), and the old and new
+    cam->world for the Gaussians' rigid transform (identity where ``mask``
+    is off).  Returns (new_Rt, new_c2w, old_c2w), each (cap, 4, 4)."""
+    T_full = lie.sim3_mul(slam_T, TCkC)
+    T7 = torch.where(is_kf[:, None], slam_T[:, :7], T_full[:, :7])
+    new_Rt = lie.se3_matrix(lie.se3_inv(T7))
+    eye = torch.eye(4, device=slam_T.device)
+    m = mask[:, None, None]
+    Rts = torch.where(m, KF.get_all_Rt(pool)[: slam_T.shape[0]], eye)
+    new_safe = torch.where(m, new_Rt, eye)
+    return new_Rt, torch.linalg.inv(new_safe), torch.linalg.inv(Rts)
+
+
+class Runtimes:
+    """Wall-clock stage counters (ms per call in ``summary``)."""
+
+    def __init__(self):
+        self.data: dict = {}
+
+    def add(self, key: str, dt: float):
+        acc = self.data.setdefault(key, [0.0, 0])
+        acc[0] += dt
+        acc[1] += 1
+
+    def summary(self) -> dict:
+        return {k: 1000.0 * v[0] / max(v[1], 1) for k, v in self.data.items()}
+
+
 class MapperStage:
     """Consumes mapper messages into a ``SceneModel`` on ``device``.
 
-    ``dataset`` supplies map-resolution images (``dataset[frame_id]`` then
-    ``dataset.transform.to_map``) when a message carries none; its
-    ``K_map`` and map size set the scene's camera.
+    ``dataset`` supplies map-resolution images when a message carries none
+    usable; its ``K_map`` and map size set the scene's camera.
+    ``slam_keyframes`` (the SLAM ``KeyframeStore``) is needed only for the
+    loop-closure rigid transform a SLAM keyframe after frame 0 triggers.
     """
 
     def __init__(self, dataset, cfg: MapperConfig = MapperConfig(), *, device=None,
                  seed: int = 0, num_key_iterations: int = 30,
-                 num_common_iterations: int = 0, noise=None):
+                 num_common_iterations: int = 0, noise=None,
+                 slam_keyframes: Optional[KeyframeStore] = None,
+                 rigid_transform_gaussians: bool = True):
         self.dataset = dataset
         self.cfg = cfg
         self.device = resolve(device)
         self.num_key_iterations = num_key_iterations
         self.num_common_iterations = num_common_iterations
+        self.slam_keyframes = slam_keyframes
+        self.rigid_transform_gaussians = rigid_transform_gaussians
         self.scene_model = SceneModel(dataset.W_map, dataset.H_map, dataset.K_map,
                                       cfg, device=self.device, seed=seed, noise=noise)
         self.mapper_index = 0
+        self.related_frames: dict = {}   # slam keyframe index -> [mapper ids]
+        self.mapper_meta: list = []      # per mapper frame bookkeeping
+        self.rigid_transforms = 0        # loop-closure transforms of the scene
         self.start_time = time.time()
         self.n_frames = 0
 
     def _map_image(self, m: dict, img_map):
+        """The message's map-resolution image in [0, 1] and its info: the
+        frame's device SLAM image when the resolutions match, else the
+        image given, else the dataset's frame."""
         frame_id = m["frame_id"]
         info = dict(self.dataset.infos[self.dataset.image_name_list[frame_id]])
-        if img_map is not None:
-            return img_map, info
         same_res = (self.dataset.H_map == self.dataset.H_slam
                     and self.dataset.W_map == self.dataset.W_slam)
         if same_res and m.get("img_dev") is not None:
-            return m["img_dev"], info
+            # the SLAM image is in [-1, 1]; the mapper trains on [0, 1]
+            return (m["img_dev"] + 1.0) * 0.5, info
+        if img_map is not None:
+            return img_map, info
         original, info = self.dataset[frame_id]
         return self.dataset.transform.to_map(original), info
 
@@ -130,13 +202,12 @@ class MapperStage:
         return self.train(m)
 
     def ingest(self, m: dict, img_map=None):
-        """Register the message's keyframe and densify if it is important.
-        Returns the new keyframe."""
+        """Register the message's keyframe (after the loop-closure rigid
+        transform a SLAM keyframe after frame 0 brings) and densify if it is
+        important.  Returns the new keyframe."""
         frame_id = m["frame_id"]
-        if m["is_slam_keyframe"] and frame_id > 0:
-            raise NotImplementedError(
-                "loop-closure rigid transforms of the scene need the port of "
-                "geometry/lie.py; feed SLAM keyframes only at frame 0")
+        last_kf_index = m["last_keyframe_index"]
+        self.related_frames.setdefault(last_kf_index, []).append(self.mapper_index)
         img_map, info = self._map_image(m, img_map)
         Rt_w2c = se3_w2c_matrix_np(np.asarray(m["T_WC"], np.float32)[:7])
         kf = make_device_keyframe(
@@ -152,12 +223,54 @@ class MapperStage:
             image_name=info.get("name", f"frame_{frame_id:06d}"),
             timestamp=m["timestamp"],
         )
+        self.mapper_meta.append(dict(last_keyframe_index=last_kf_index,
+                                     is_slam_keyframe=m["is_slam_keyframe"],
+                                     T_CkC=m["T_CkC"]))
+        if m["is_slam_keyframe"] and frame_id > 0:
+            self.rigid_transform_scene()
         self.scene_model.add_keyframe(kf, Rt_w2c)
         if m["is_important"]:
             self.scene_model.add_new_gaussians()
         self.mapper_index += 1
         self.n_frames += 1
         return kf
+
+    def rigid_transform_scene(self):
+        """Carry the pose graph's corrections into the mapper's keyframe
+        poses and its Gaussians: one batched update at keyframe capacity."""
+        if self.slam_keyframes is None:
+            raise RuntimeError("a SLAM keyframe after frame 0 needs the SLAM keyframe "
+                               "store (MapperStage(slam_keyframes=...))")
+        sm = self.scene_model
+        n = len(sm.keyframes)
+        if n == 0:
+            return
+        cap = sm.cfg.keyframe_capacity
+        dev = self.device
+        ident8 = torch.tensor([0, 0, 0, 0, 0, 0, 1, 1], dtype=torch.float32, device=dev)
+        slam_T = np.tile(ident8.cpu().numpy(), (cap, 1))
+        is_kf = np.zeros(cap, bool)
+        mask = np.zeros(cap, bool)
+        rel_rows, rel = [], []
+        for mapper_id in range(n):
+            meta = self.mapper_meta[mapper_id]
+            slam_T[mapper_id] = self.slam_keyframes.T_WC[meta["last_keyframe_index"]]
+            is_kf[mapper_id] = meta["is_slam_keyframe"]
+            mask[mapper_id] = True
+            if meta["T_CkC"] is not None:
+                rel_rows.append(mapper_id)
+                rel.append(torch.as_tensor(meta["T_CkC"], dtype=torch.float32, device=dev))
+        TCkC = ident8.repeat(cap, 1)
+        if rel:
+            TCkC[rel_rows] = torch.stack(rel)
+        mask_t = torch.as_tensor(mask, device=dev)
+        new_Rt, new_c2ws, old_c2ws = rigid_transform_poses(
+            sm.pool, torch.as_tensor(slam_T, device=dev), TCkC,
+            torch.as_tensor(is_kf, device=dev), mask_t)
+        sm.set_keyframe_poses_masked(new_Rt, mask_t)
+        if self.rigid_transform_gaussians:
+            sm.rigid_transform_gs(old_c2ws, new_c2ws)
+        self.rigid_transforms += 1
 
     def train(self, m: dict) -> dict:
         """The message's training burst (key or common iterations)."""
@@ -181,3 +294,358 @@ class MapperStage:
             "n_gaussians": sm.n_active_gaussians,
             "metrics": {k: v for k, v in ev.items() if k in METRIC_KEYS},
         }
+
+
+class _Prefetcher:
+    """Background frame decode thread."""
+
+    def __init__(self, dataset, depth: int = 4):
+        self.dataset = dataset
+        self.q: queue.Queue = queue.Queue(maxsize=depth)
+        self.t = threading.Thread(target=self._run, daemon=True)
+        self.t.start()
+
+    def _run(self):
+        for i in range(len(self.dataset)):
+            self.q.put(self.dataset[i])
+        self.q.put(None)
+
+    def __iter__(self):
+        while True:
+            item = self.q.get()
+            if item is None:
+                return
+            yield item
+
+
+class _UploadAhead:
+    """SLAM-image upload ahead of tracking (up to ``depth`` frames).
+
+    Each frame's SLAM image goes from pinned host memory to the device on
+    this thread's own stream; the thread waits for the copy, binds the
+    tensor to its frame (``runner.bind``, so the tracker never pulls the
+    image back to find it) and yields (("slam_dev", tensor), info).  Call
+    :meth:`close` when the consumer stops early."""
+
+    def __init__(self, it, transform, device, runner=None, depth: int = 3):
+        self.it = it
+        self.transform = transform
+        self.device = torch.device(device)
+        self.bind = getattr(runner, "bind", None)
+        self.q: queue.Queue = queue.Queue(maxsize=depth)
+        self._stop = False
+        self.stream = (torch.cuda.Stream(self.device) if self.device.type == "cuda"
+                       else None)
+        self.t = threading.Thread(target=self._run, daemon=True)
+        self.t.start()
+
+    def close(self):
+        """Stop the producer and drain queued items so it can exit."""
+        self._stop = True
+        while True:
+            try:
+                self.q.get_nowait()
+            except queue.Empty:
+                break
+
+    def _upload(self, original_image):
+        host = self.transform.to_slam(original_image)
+        if self.stream is None:
+            dev = torch.from_numpy(np.ascontiguousarray(host)).to(self.device)
+        else:
+            pinned = torch.from_numpy(np.ascontiguousarray(host)).pin_memory()
+            with torch.cuda.stream(self.stream):
+                dev = pinned.to(self.device, non_blocking=True)
+            self.stream.synchronize()
+            # used on the default stream from here on
+            dev.record_stream(torch.cuda.default_stream(self.device))
+        if self.bind is not None:
+            self.bind(dev, host)
+        return dev
+
+    def _run(self):
+        try:
+            for original_image, info in self.it:
+                if self._stop:
+                    return
+                dev = self._upload(original_image)
+                while not self._stop:
+                    try:
+                        self.q.put((("slam_dev", dev), info), timeout=0.25)
+                        break
+                    except queue.Full:
+                        continue
+                if self._stop:
+                    return
+        except Exception as e:  # surfaced to the consumer
+            self.q.put(e)
+            return
+        self.q.put(None)
+
+    def __iter__(self):
+        while True:
+            item = self.q.get()
+            if item is None:
+                return
+            if isinstance(item, Exception):
+                raise item
+            yield item
+
+
+class _MapperWorker:
+    """Background consumer of the backend's work items, in message order:
+    mapper-frame matching, dense points and the mapper.  Nothing here
+    writes tracker-visible state.  The bounded queue is the backpressure;
+    an exception surfaces on the next ``submit`` or on ``close``."""
+
+    def __init__(self, system, depth: int = 4):
+        self.system = system
+        self.q: queue.Queue = queue.Queue(maxsize=depth)
+        self.error = None
+        self.t = threading.Thread(target=self._run, daemon=True)
+        self.t.start()
+
+    def submit(self, work: dict, img_map=None):
+        if self.error is not None:
+            err, self.error = self.error, None
+            raise err
+        self.q.put((work, img_map))
+
+    def _run(self):
+        while True:
+            item = self.q.get()
+            try:
+                if item is None:
+                    return
+                work, img_map = item
+                t0 = time.time()
+                mm = self.system.backend.process_async(work)
+                if mm is not None:
+                    self.system._handle_mapper_msg(mm, img_map=img_map)
+                self.system.runtimes.add("map", time.time() - t0)
+            except Exception as e:  # surfaced on the next submit/close
+                self.error = e
+            finally:
+                self.q.task_done()
+
+    def close(self):
+        self.q.put(None)
+        self.t.join()
+        if self.error is not None:
+            err, self.error = self.error, None
+            raise err
+
+
+class System:
+    """Single-host pipeline: track -> backend -> map, per frame, on
+    ``device`` (default: the CUDA device).
+
+    ``mapper_seed`` and ``noise`` seed the mapper's host randomness and its
+    densification noise (``SceneModel``)."""
+
+    def __init__(self, args, config: dict, dataset, runner,
+                 mapper_cfg: Optional[MapperConfig] = None, retrieval=None, *,
+                 device=None, mapper_seed: int = 0, noise=None):
+        self.args = args
+        self.config = config
+        self.dataset = dataset
+        self.device = resolve(device)
+        if int(getattr(args, "n_devices", 1) or 1) > 1:
+            raise NotImplementedError("--n_devices > 1: the multi-device mesh is not ported")
+        self._maybe_auto_calibrate(args, dataset, runner)
+        self.keyframes = KeyframeStore(dataset.H_slam, dataset.W_slam, K_slam=dataset.K_slam,
+                                       device=self.device)
+        self.frontend = Frontend(args, config, dataset, self.keyframes, runner,
+                                 device=self.device)
+        if retrieval is None:
+            from artdeco_tpu_torch.vslam.retrieval import build_retrieval_database
+
+            retrieval = build_retrieval_database(args, config, self.keyframes)
+        self.backend = Backend(args, config, dataset, self.keyframes, runner,
+                               retrieval=retrieval, device=self.device)
+        self.mapper_cfg = mapper_cfg or MapperConfig(
+            sh_degree=getattr(args, "sh_degree", 3),
+            local_feat_dim=getattr(args, "local_feat_dim", 32),
+            global_feat_dim=getattr(args, "global_feat_dim", 32),
+            pyr_levels=getattr(args, "pyr_levels", 2),
+        )
+        self.mapper = MapperStage(
+            dataset, self.mapper_cfg, device=self.device, seed=mapper_seed, noise=noise,
+            num_key_iterations=getattr(args, "num_key_iterations", 30),
+            num_common_iterations=getattr(args, "num_common_iterations", 0),
+            slam_keyframes=self.keyframes,
+            rigid_transform_gaussians=getattr(args, "rigid_transform_gaussians", True))
+        self.runtimes = Runtimes()
+        self.start_time = None
+        self.n_frames = 0
+        self.frame_s: list = []     # host seconds per frame of the stream loop
+
+    @property
+    def scene_model(self) -> SceneModel:
+        return self.mapper.scene_model
+
+    @property
+    def mapper_index(self) -> int:
+        return self.mapper.mapper_index
+
+    @staticmethod
+    def _maybe_auto_calibrate(args, dataset, runner):
+        """Focal estimate from the first frame's mono pointmap when the
+        dataset's intrinsics are a guess (advisory: a failure keeps the
+        guess)."""
+        if not getattr(dataset, "calib_is_guess", False):
+            return
+        if not getattr(args, "auto_calib", True) or not hasattr(runner, "inference_mono"):
+            return
+        from artdeco_tpu_torch.geometry.calibration import estimate_focal_weiszfeld
+
+        try:
+            img, _ = dataset[0]
+            img_slam = torch.as_tensor(dataset.transform.to_slam(img), device=runner.device)
+            X, C, _, _ = runner.inference_mono(img_slam)
+            conf = C[0][:, 0].cpu().numpy()
+            valid = torch.as_tensor(conf >= np.quantile(conf, 0.3), device=X.device)
+            f_slam = float(estimate_focal_weiszfeld(X[0], valid, dataset.H_slam,
+                                                    dataset.W_slam))
+            if not np.isfinite(f_slam) or f_slam <= 1.0:
+                raise ValueError(f"degenerate focal estimate {f_slam}")
+            dataset.recalibrate_focal(f_slam * dataset.transform.scale_slam_w)
+        except Exception as e:
+            import warnings
+
+            warnings.warn(f"auto-calibration failed, keeping guess: {e}")
+
+    # -- mapper messages ----------------------------------------------------
+    def _handle_mapper_msg(self, m: dict, img_map=None):
+        return self.mapper.handle(m, img_map)
+
+    # -- main loop ----------------------------------------------------------
+    def run(self, max_frames: Optional[int] = None, progress: bool = True,
+            overlap: Optional[bool] = None):
+        """Stream the dataset through track -> backend -> map.
+
+        ``overlap`` (default: args.async_pipeline, else True) runs the
+        mapper-facing half on a worker thread; the trajectory is the same
+        either way, only the wall clock differs."""
+        if overlap is None:
+            overlap = bool(getattr(self.args, "async_pipeline", True))
+        self.start_time = time.time()
+        it = _UploadAhead(_Prefetcher(self.dataset), self.dataset.transform, self.device,
+                          runner=self.frontend.runner)
+        bar = None
+        if progress:
+            try:
+                from tqdm import tqdm
+
+                bar = tqdm(total=len(self.dataset), desc="artdeco-torch")
+            except ImportError:
+                bar = None
+        profile_dir = getattr(self.args, "profile_dir", "") or ""
+        prof = None
+        if profile_dir:
+            from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+            acts = [ProfilerActivity.CPU] + (
+                [ProfilerActivity.CUDA] if self.device.type == "cuda" else [])
+            prof = profile(activities=acts, on_trace_ready=tensorboard_trace_handler(profile_dir))
+            prof.start()
+            annotate = torch.profiler.record_function
+        else:
+            annotate = lambda name: contextlib.nullcontext()   # noqa: E731
+        worker = _MapperWorker(self) if overlap else None
+        try:
+            self._stream_loop(it, bar, max_frames, annotate, worker)
+        finally:
+            it.close()
+            if worker is not None:
+                worker.close()
+            if prof is not None:
+                prof.stop()
+        if bar is not None:
+            bar.close()
+        return self
+
+    def _stream_loop(self, it, bar, max_frames, annotate, worker=None):
+        for original_image, info in it:
+            t_frame = t0 = time.time()
+            with annotate("frontend.track"):
+                msg = self.frontend.process_frame(original_image, info)
+            self.runtimes.add("track", time.time() - t0)
+            if msg is not None:
+                t0 = time.time()
+                with annotate("backend.sync"):
+                    work = self.backend.process_sync(msg)
+                self.runtimes.add("backend", time.time() - t0)
+                if work is not None:
+                    if worker is not None:
+                        worker.submit(work)
+                    else:
+                        t0 = time.time()
+                        with annotate("mapper.step"):
+                            mapper_msg = self.backend.process_async(work)
+                            if mapper_msg is not None:
+                                self._handle_mapper_msg(mapper_msg)
+                        self.runtimes.add("map", time.time() - t0)
+            self.n_frames += 1
+            self.frame_s.append(time.time() - t_frame)
+            if bar is not None:
+                bar.update(1)
+                # the Gaussian count is a device readback: skipped while the
+                # worker overlaps, where it would wait for the mapper
+                gs = "?" if worker is not None else self.scene_model.n_active_gaussians
+                bar.set_postfix_str(f"kf={len(self.keyframes)} gs={gs} "
+                                    f"lost={self.frontend.lost_number}", refresh=False)
+            if max_frames is not None and self.n_frames >= max_frames:
+                break
+
+    # -- outputs --------------------------------------------------------------
+    def save(self, out_dir: str) -> dict:
+        """Trajectories, lost share, config and trajectory evaluation under
+        ``out_dir/slam``; the scene export (``SceneModel.save``); and
+        ``run_metadata.json``.  Returns the metadata."""
+        from artdeco_tpu_torch.dataio.tum_io import save_tum_trajectory
+        from artdeco_tpu_torch.eval.trajectory import evaluate_trajectory
+
+        os.makedirs(out_dir, exist_ok=True)
+        slam_dir = os.path.join(out_dir, "slam")
+        os.makedirs(slam_dir, exist_ok=True)
+        est = self.frontend.estimated_trajectory()
+        kf_traj = self.frontend.keyframe_trajectory()
+        if len(est):
+            save_tum_trajectory(os.path.join(slam_dir, "frames.txt"), est[:, 0], est[:, 1:8])
+        if len(kf_traj):
+            save_tum_trajectory(os.path.join(slam_dir, "keyframes.txt"),
+                                kf_traj[:, 0], kf_traj[:, 1:8])
+        lost_pct = self.frontend.lost_number / max(len(self.dataset), 1)
+        with open(os.path.join(slam_dir, "lost_percentage.txt"), "w") as f:
+            f.write(str(lost_pct))
+        with open(os.path.join(slam_dir, "config.json"), "w") as f:
+            json.dump(self.config, f, indent=4, default=str)
+        gt = np.asarray(self.frontend.frames_Twc_gt)
+        eval_out = {}
+        if len(gt) > 2 and len(est) > 2:
+            eval_out = evaluate_trajectory(slam_dir, "evaluate_frames.json", est, gt,
+                                           max_dt=0.05)
+
+        dt = time.time() - self.start_time if self.start_time else 0.0
+        scene_metrics = self.scene_model.save(out_dir, reconstruction_time=dt,
+                                              n_frames=self.n_frames)
+        metadata = {
+            "time": dt,
+            "FPS": self.n_frames / max(dt, 1e-9),
+            "n_frames": self.n_frames,
+            "n_keyframes": len(self.keyframes),
+            "n_gaussians": int(self.scene_model.n_active_gaussians),
+            "runtimes_ms": self.runtimes.summary(),
+            "metrics": {k: v for k, v in scene_metrics.items() if k in METRIC_KEYS},
+            "trajectory": eval_out,
+        }
+        with open(os.path.join(out_dir, "run_metadata.json"), "w") as f:
+            json.dump(metadata, f, indent=2, default=str)
+        return metadata
+
+    def finetune(self, n_epochs: int):
+        """Post-stream finetuning epochs."""
+        self.scene_model.enable_inference_mode()
+        for _ in range(n_epochs):
+            self.scene_model.finetune_epoch()

@@ -168,8 +168,15 @@ class Frontend:
         return img
 
     def process_frame(self, original_image, info: dict) -> Optional[dict]:
-        """Track one (H, W, 3) raw frame; returns the backend message or None."""
-        img_slam = self.upload(original_image)
+        """Track one frame; returns the backend message or None.
+
+        ``original_image`` is an (H, W, 3) raw frame, or ("slam_dev", img)
+        when an upload-ahead thread already put the SLAM image on the
+        device (and bound it to its frame: ``runtime/system._UploadAhead``)."""
+        if isinstance(original_image, tuple) and original_image[0] == "slam_dev":
+            img_slam = original_image[1]
+        else:
+            img_slam = self.upload(original_image)
         is_test = info.get("is_test", False)
         timestamp = float(info.get("timestamp", self.frame_id))
         gt = info.get("Twc_gt")

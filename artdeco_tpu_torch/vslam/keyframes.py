@@ -42,8 +42,9 @@ class KeyframeStore:
         return self.n_size
 
     def __getitem__(self, idx: int) -> Frame:
+        # a copy: the host row changes under a GN solve, the Frame must not
         return Frame(img=self._img[idx],
-                     T_WC=torch.as_tensor(self.T_WC[idx], device=self.device),
+                     T_WC=torch.tensor(self.T_WC[idx], device=self.device),
                      X_canon=self._X[idx], C=self._C[idx], N=self._N[idx],
                      frame_id=int(self.dataset_idx[idx]),
                      frame_time=float(self.timestamp[idx]))

@@ -14,6 +14,16 @@ The dict's layout:
     frontend:  {last_T_WC (8,), frame_id, lost_number,
                 frames_info [(frame_id, timestamp, kf_index, T_rel (8,))]}
 
+``backend_state_from_numpy`` / ``load_backend_state`` do the same for a
+backend: its factor graph's edge store and its retrieval database.
+
+    factor_graph: {n_directed, ii [..], jj [..] (kept pairs),
+                   e_ii, e_jj, e_valid (cap,), idx (n, HW) int, vm (n, HW)
+                   bool, q (n, HW) f32 (the first n_directed device rows)}
+    retrieval:    {centroids (C, D) or None, ivf {c: (ids [..], sigs
+                   [(D,)])}, image_norms [..], kf_counter, sim {i: {j: s}},
+                   pending [(n, D)] or None}
+
 This module only sees numpy: converting framework arrays is the caller's
 job.
 """
@@ -98,3 +108,55 @@ def load_frontend_state(fe, state: FrontendState) -> None:
     tr.last_embedding = td["last_embedding"]
     for k, v in state.frontend.items():
         setattr(fe, k, v)
+
+
+def backend_state_from_numpy(d: dict, device) -> dict:
+    """The port's backend state on ``device`` from a dict of numpy arrays
+    (layout in the module docstring)."""
+    fg, rd = d["factor_graph"], d["retrieval"]
+    n = int(fg["n_directed"])
+    factor_graph = dict(
+        n_directed=n, ii=[int(i) for i in fg["ii"]], jj=[int(j) for j in fg["jj"]],
+        e_ii=np.array(fg["e_ii"], np.int32), e_jj=np.array(fg["e_jj"], np.int32),
+        e_valid=np.array(fg["e_valid"], bool),
+        idx=_dev(np.asarray(fg["idx"])[:n], device, torch.int32),
+        vm=_dev(np.asarray(fg["vm"])[:n], device, torch.bool),
+        q=_dev(np.asarray(fg["q"])[:n], device, torch.float32))
+    retrieval = dict(
+        centroids=None if rd["centroids"] is None else np.array(rd["centroids"], np.float32),
+        ivf={int(c): ([int(i) for i in ids], [np.array(x, np.float32) for x in sigs])
+             for c, (ids, sigs) in rd["ivf"].items()},
+        image_norms=[float(x) for x in rd["image_norms"]],
+        kf_counter=int(rd["kf_counter"]),
+        sim={int(i): {int(j): float(v) for j, v in row.items()} for i, row in rd["sim"].items()},
+        pending=None if rd["pending"] is None else [np.array(x, np.float32)
+                                                    for x in rd["pending"]])
+    return dict(factor_graph=factor_graph, retrieval=retrieval)
+
+
+def load_backend_state(bk, state: dict) -> None:
+    """Install ``state`` into the port ``Backend`` ``bk``: the factor
+    graph's edge store (device rows at the JAX package's capacities) and
+    the retrieval database."""
+    fg, fd = bk.factor_graph, state["factor_graph"]
+    n = fd["n_directed"]
+    fg.ii, fg.jj = list(fd["ii"]), list(fd["jj"])
+    fg.e_ii, fg.e_jj, fg.e_valid = fd["e_ii"].copy(), fd["e_jj"].copy(), fd["e_valid"].copy()
+    fg._cap = fg.e_ii.shape[0]
+    fg.n_directed = 0
+    fg._ensure_dev_capacity(n)
+    for key in ("idx", "vm", "q"):
+        fg._dev_edges[key][:n] = fd[key]
+    fg.n_directed = n
+
+    db, rd = bk.retrieval, state["retrieval"]
+    from collections import defaultdict
+
+    db.centroids = rd["centroids"]
+    db.ivf = defaultdict(lambda: [[], []])
+    for c, (ids, sigs) in rd["ivf"].items():
+        db.ivf[c] = [list(ids), list(sigs)]
+    db.image_norms = list(rd["image_norms"])
+    db.kf_counter = rd["kf_counter"]
+    db.sim_graph.sim = defaultdict(dict, {i: dict(r) for i, r in rd["sim"].items()})
+    db._pending = None if rd["pending"] is None else list(rd["pending"])

@@ -43,12 +43,36 @@ stream at the ``MapperConfig`` defaults, and the tracking frontend
    keyframes, ATE RMSE < 0.03 m against ground truth; prints ms per
    tracked frame, the split between matching and ``track_step``, and a
    profile of a few tracked frames.
+8. the full system (``System.run``, overlapped, as users run it): a
+   240-frame 512x384 synthetic stream through tracking, the backend (factor
+   graph, Sim(3) GN, retrieval) and the mapper at the ``get_args`` and
+   ``MapperConfig`` defaults, then ``save`` into a temporary directory.
+   Checks: 0 lost, at least 3 keyframes, every keyframe after the first
+   ran ``add_factors`` and a GN solve and kept its consecutive edge, no
+   frame lookup pulled an image back from the card (the upload thread
+   binds each image to its frame), one
+   rigid transform of the scene per SLAM keyframe after frame 0, K1/K2/K3
+   launches equal to the calls that launch them (K3: tracked matches +
+   the backend's symmetric-match rows + its pair matches), ATE RMSE < 0.03
+   m, finite test PSNR.  Prints ms per frame and FPS, the stage split,
+   peak memory, then runs the stream again sequentially with
+   device-synchronised backend timers (keyframe poses within 1e-5 of the
+   overlapped run's), the ms per GN solve at its (P, E), and a profile of
+   the frames around the second keyframe with the GN's share.
+9. the solvers and relocalization on the card: the block-sparse PCG
+   against the dense GN on a 264-pose graph at 128x96, 10 iterations
+   (poses within 5e-4 in the Sim(3) log, the CPU test's tolerance, and the
+   median pose error down 20-fold), and the teleport stream at
+   512x384 with a pose-aware stub retrieval: a frame is lost,
+   relocalization appends a keyframe near the ground truth, and the frames
+   after it track.
 
 Prints one line per phase, then a JSON line of the kernels and, last,
 ``{"ok": true, "device": {...}}``.  Any failed check raises: the exit code
 is then not 0 and the last line is not printed.
 """
 
+import gc
 import json
 import os
 import re
@@ -71,6 +95,10 @@ N_PROFILED = 20    # iterations of the profiled burst
 TRACK_W, TRACK_H, TRACK_FRAMES = 512, 384, 120
 K3_RADIUS, K3_DILATION = 4, 5
 N_PROFILED_FRAMES = 5
+SYS_W, SYS_H, SYS_FRAMES = 512, 384, 240
+SYS_PROFILED = (66, 74)     # frames around the second keyframe (frame 70)
+CHAIN_POSES, CHAIN_W, CHAIN_H = 264, 128, 96
+TELE_WALK, TELE_TOTAL = 52, 58
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense; at a 700 W
 # limit): float32 outside the tensor cores, bf16 on the tensor cores (f32
@@ -308,13 +336,15 @@ def golden(p, timed: bool):
     return res
 
 
-def profile_window(fn, n_steps: int, what: str) -> str:
+def profile_window(fn, n_steps: int, what: str, ranges=()) -> str:
     """``fn()`` (``n_steps`` steps of ``what``) under torch.profiler: the
     window (host clock), the device's busy time (sum of its kernels,
     memcpys and memsets, one stream) and idle share, the count of device
     kernels, the kernels with the most device time, and the peak device
-    memory.  The profiler adds host time to every launch, so the window is
-    longer than the same work unprofiled."""
+    memory; for each ``record_function`` range named in ``ranges``, the
+    device time of the kernels launched inside it and their share of the
+    busy time.  The profiler adds host time to every launch, so the window
+    is longer than the same work unprofiled."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -326,8 +356,25 @@ def profile_window(fn, n_steps: int, what: str) -> str:
         fn()
         torch.cuda.synchronize()
         window_ms = 1e3 * (time.perf_counter() - t0)
-    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return summarize_profile(prof, window_ms, n_steps, what, ranges)
+
+
+def summarize_profile(prof, window_ms: float, n_steps: int, what: str, ranges=()) -> str:
+    """profile_window's summary of a finished profiler run over
+    ``window_ms`` of host time."""
+    import torch
+    from torch.autograd import DeviceType
+
+    # a range's span on the device timeline is not a kernel
+    dev = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA and e.key not in ranges]
     busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
+    in_ranges = []
+    for name in ranges:
+        ms = sum(e.device_time_total for e in prof.events()
+                 if e.name == name and e.device_type == DeviceType.CPU) / 1e3
+        in_ranges.append(f"{name} kernels {ms:.2f} ms ({100 * ms / busy_ms:.1f}% of busy)"
+                         if ms > 0 and busy_ms > 0 else f"{name} not measured")
     kernels = sum(e.count for e in dev)
     top = sorted(dev, key=lambda e: -e.self_device_time_total)[:6]
     tops = "; ".join(f"{e.key[:48]} {100 * e.self_device_time_total / 1e3 / busy_ms:.1f}% "
@@ -336,7 +383,8 @@ def profile_window(fn, n_steps: int, what: str) -> str:
     return (f"{n_steps} {what}, window {window_ms:.1f} ms, device busy "
             f"{busy_ms:.1f} ms, idle share {idle}, {kernels} device kernels "
             f"({kernels / n_steps:.0f}/{what.rstrip('s')}), peak memory "
-            f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; top: {tops}")
+            f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; top: {tops}"
+            + "".join(f"; {r}" for r in in_ranges))
 
 
 def k3_stream_inputs(runner, h: int, w: int, mcfg: dict) -> tuple:
@@ -381,6 +429,325 @@ def k3_golden(D11b, D21b, p, valid, timed: bool):
                    plain_ms=cuda_ms(lambda: RD.window_argmax_plain(*args, 1, RD.FLT_MIN)))
     return res
 
+
+def register_stream(runner, ds) -> float:
+    """Register every frame of ``ds`` with the oracle; returns the seconds."""
+    t0 = time.time()
+    for i in range(len(ds)):
+        img, info = ds[i]
+        T = np.ones(8, np.float32)
+        T[:7] = info["Twc_gt"]
+        runner.register(ds.transform.to_slam(img), i, T)
+    return time.time() - t0
+
+
+def system_args(**overrides):
+    """The entry point's arguments for the oracle synthetic stream: every
+    ``get_args`` default but the stream's own flags."""
+    from artdeco_tpu_torch.dataio.args import get_args
+
+    args = get_args(["-s", "synthetic://", "-d", "synthetic", "--oracle",
+                     "--test_hold", str(TEST_HOLD), "--retrieval_checkpoint_path", ""])
+    for k, v in overrides.items():
+        setattr(args, k, v)
+    return args
+
+
+def make_system(dev, ds, cfg, args):
+    from artdeco_tpu_torch.models.oracle import OracleRunner
+    from artdeco_tpu_torch.runtime.system import System
+
+    runner = OracleRunner((ds.H_slam, ds.W_slam), ds.K_slam, cfg["matching"], device=dev)
+    reg_s = register_stream(runner, ds)
+    return System(args, cfg, ds, runner, device=dev), reg_s
+
+
+def timers_ms(timers: dict, prefix: str) -> str:
+    return ", ".join(f"{k} {1e3 * v[0] / max(v[1], 1):.2f}" for k, v in sorted(timers.items())
+                     if k.startswith(prefix)) or "none"
+
+
+def full_system_phase(dev, cfg):
+    """Phase 8: the full System, overlapped, then sequentially (see the
+    module docstring).  Returns the kernels' launch counts of the
+    overlapped run."""
+    import tempfile
+
+    import torch
+    from artdeco_tpu_torch.dataio.dataset import SyntheticDataset
+    from artdeco_tpu_torch.eval.trajectory import evaluate_trajectory
+    from artdeco_tpu_torch.ops import refine_dense as RD
+    from artdeco_tpu_torch.ops.splat import composite as C
+    from artdeco_tpu_torch.runtime.system import _Prefetcher, _UploadAhead
+
+    args = system_args(max_size_slam=SYS_W)
+    ds = SyntheticDataset(args, n_frames=SYS_FRAMES, width=SYS_W, height=SYS_H)
+    check((ds.W_slam, ds.H_slam, ds.W_map, ds.H_map) == (SYS_W, SYS_H, SYS_W, SYS_H),
+          "full-system resolution")
+    sys_, reg_s = make_system(dev, ds, cfg, args)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    C.composite_fwd.launches = C.composite_bwd.launches = RD.window_argmax.launches = 0
+    t0 = time.time()
+    sys_.run(progress=False)
+    torch.cuda.synchronize()
+    run_s = time.time() - t0
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_")
+    meta = sys_.save(out_dir)
+    torch.cuda.synchronize()
+    launches = {"fwd": C.composite_fwd.launches, "bwd": C.composite_bwd.launches,
+                "k3": RD.window_argmax.launches}
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+
+    fe, bk, fg, sm = sys_.frontend, sys_.backend, sys_.backend.factor_graph, sys_.scene_model
+    n_kf = len(sys_.keyframes)
+    kf_frames = sys_.keyframes.dataset_idx[:n_kf].tolist()
+    check(fe.lost_number == 0, f"{fe.lost_number} frames lost")
+    check(n_kf >= 3, f"{n_kf} keyframes")
+    check(len(fg.solves) == n_kf - 1, f"{len(fg.solves)} GN solves for {n_kf} keyframes")
+    pairs = set(zip(fg.ii, fg.jj))
+    missing = [k for k in range(1, n_kf) if (k - 1, k) not in pairs]
+    check(not missing, f"keyframes {missing} lost their consecutive edge")
+    check(sys_.mapper.rigid_transforms == n_kf - 1,
+          f"{sys_.mapper.rigid_transforms} rigid transforms for {n_kf} keyframes")
+    tracked = fe.tracker.timers["trk.match"][1]
+    k3_want = tracked + fg.match_rows + bk.pair_matches
+    check(launches["k3"] == k3_want, f"K3 launches {launches['k3']} != {tracked} tracked + "
+          f"{fg.match_rows} symmetric rows + {bk.pair_matches} pair matches")
+    check(launches["bwd"] == sm.n_train_steps > 0,
+          f"K2 launches {launches['bwd']} != {sm.n_train_steps} training steps")
+    check(launches["fwd"] == sm.n_train_steps + sm.n_renders,
+          f"K1 launches {launches['fwd']} != {sm.n_train_steps} steps + {sm.n_renders} renders")
+    ate = meta["trajectory"]["APE"]["rmse"]
+    psnr = meta["metrics"].get("PSNR", float("nan"))
+    check(ate < 0.03, f"ATE RMSE {ate} m")
+    lookups = fe.runner.d2h_lookups
+    check(lookups == 0, f"{lookups} frame lookups pulled an image back from the card")
+    check(meta["metrics"].get("n_test_frames", 0) >= 1 and np.isfinite(psnr),
+          f"test PSNR {psnr}")
+    for rel in ("run_metadata.json", "metadata.json", "slam/frames.txt", "slam/keyframes.txt",
+                "point_clouds/gs.ply", "colmap/images.bin", "onthefly.txt"):
+        check(os.path.isfile(os.path.join(out_dir, rel)), f"save wrote no {rel}")
+    frame_ms = [1e3 * x for x in sys_.frame_s]
+    rt = sys_.runtimes.summary()
+    print(f"phase 8 full system: {SYS_FRAMES} frames {SYS_W}x{SYS_H} overlapped (oracle "
+          f"registered in {reg_s:.1f} s); lost {fe.lost_number}; keyframes {n_kf} at frames "
+          f"{kf_frames}; GN solves {len(fg.solves)} at (P, E, edges) {fg.solves}; kept pairs "
+          f"{sorted(pairs)}; rigid transforms {sys_.mapper.rigid_transforms}; mapper frames "
+          f"{sys_.mapper_index}; launches K1 {launches['fwd']} (= {sm.n_train_steps} steps + "
+          f"{sm.n_renders} renders) K2 {launches['bwd']} K3 {launches['k3']} (= {tracked} "
+          f"tracked + {fg.match_rows} symmetric rows + {bk.pair_matches} pair matches); ATE "
+          f"RMSE {ate:.5f} m; frame lookups that pulled an image {lookups}; test PSNR "
+          f"{psnr:.2f} dB SSIM {meta['metrics']['SSIM']:.4f}; "
+          f"Gaussians {meta['n_gaussians']}", flush=True)
+    print(f"phase 8 timing: {statistics.median(frame_ms):.2f} ms per frame (median; mean "
+          f"{statistics.mean(frame_ms):.2f}, max {max(frame_ms):.1f}), {SYS_FRAMES / run_s:.2f} "
+          f"FPS over the run ({run_s:.1f} s, the worker's drain included); stage ms per call: "
+          f"track {rt.get('track', 0):.2f}, backend {rt.get('backend', 0):.2f} (per "
+          f"message), map {rt.get('map', 0):.2f} (per work item, worker thread); peak memory "
+          f"{peak_mib:.1f} MiB", flush=True)
+    kf_T = sys_.keyframes.T_WC[:n_kf].copy()
+    del sys_, fe, bk, fg, sm
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the same stream sequentially, device-synchronised backend timers, and
+    # a profile of the frames around the second keyframe
+    seq, _ = make_system(dev, ds, cfg, system_args(max_size_slam=SYS_W))
+    seq.backend.sync_timing = True
+    it = _UploadAhead(_Prefetcher(ds), ds.transform, dev, runner=seq.frontend.runner)
+    window = {}
+
+    def frames():
+        from torch.profiler import ProfilerActivity, profile
+
+        for i, item in enumerate(it):
+            if i == SYS_PROFILED[0]:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                window["prof"] = profile(activities=[ProfilerActivity.CPU,
+                                                     ProfilerActivity.CUDA])
+                window["prof"].start()
+                window["t0"] = time.perf_counter()
+            if i == SYS_PROFILED[1]:
+                torch.cuda.synchronize()
+                window["ms"] = 1e3 * (time.perf_counter() - window["t0"])
+                window["prof"].stop()
+            yield item
+
+    import contextlib
+
+    t0 = time.time()
+    try:
+        seq._stream_loop(frames(), None, None, lambda name: contextlib.nullcontext())
+    finally:
+        it.close()
+    torch.cuda.synchronize()
+    seq_s = time.time() - t0
+    n2 = len(seq.keyframes)
+    check(n2 == n_kf and seq.keyframes.dataset_idx[:n2].tolist() == kf_frames,
+          f"sequential keyframes {seq.keyframes.dataset_idx[:n2].tolist()} != {kf_frames}")
+    pose_diff = float(np.abs(seq.keyframes.T_WC[:n2] - kf_T).max())
+    check(pose_diff <= 1e-5, f"sequential keyframe poses {pose_diff} from the overlapped run's")
+    gn = seq.backend.factor_graph.timers.get("gn.solve", [0.0, 0])
+    print(f"phase 8 sequential: keyframes {kf_frames}, poses within {pose_diff:.3g} of the "
+          f"overlapped run's; {statistics.median([1e3 * x for x in seq.frame_s]):.2f} ms per "
+          f"frame (median; mean {statistics.mean([1e3 * x for x in seq.frame_s]):.2f}), "
+          f"{SYS_FRAMES / seq_s:.2f} FPS ({seq_s:.1f} s, its profiled window included); "
+          f"device-synchronised ms per call: "
+          f"{timers_ms(seq.backend.timers, 'bkd.')}; "
+          f"{timers_ms(seq.backend.factor_graph.timers, 'fg.')}; "
+          f"{timers_ms(seq.backend.factor_graph.timers, 'gn.')}; GN solve "
+          f"{1e3 * gn[0] / max(gn[1], 1):.2f} ms at (P, E, edges) "
+          f"{seq.backend.factor_graph.solves}", flush=True)
+    print(f"phase 8 profile: {summarize_profile(window['prof'], window['ms'], SYS_PROFILED[1] - SYS_PROFILED[0], 'frames', ('gn.solve',))}",
+          flush=True)
+    return launches
+
+
+
+def chain_graph(n_poses: int, w: int, h: int, seed: int = 1):
+    """``tests/test_torch_global_opt.py``'s graph at w x h: a zigzag of
+    exact 2-pixel x-translations over a plane (identity rotations), joined
+    to its neighbours at 1 and 4 poses and, every 16 poses, to pose 0;
+    every match integer-exact.  Returns numpy (T_gt, Xs, Cs, K, ii, jj,
+    idx, vm, Q, edge_valid, used) with E padded to a power of two."""
+    f = 0.8 * w
+    K = np.asarray([[f, 0, w / 2], [0, f, h / 2], [0, 0, 1]], np.float32)
+    tx = 2.0 * 2.0 / f
+    T_gt = np.tile(np.asarray([0, 0, 0, 0, 0, 0, 1, 1], np.float32), (n_poses, 1))
+    shift = 2 * (np.arange(n_poses) % 4)            # pixels
+    T_gt[:, 0] = (np.arange(n_poses) % 4) * tx
+    u, v = np.meshgrid(np.arange(w), np.arange(h))
+    rays = np.stack([(u - w / 2) / f, (v - h / 2) / f, np.ones_like(u, dtype=np.float64)], -1)
+    X = (2.0 * rays).reshape(-1, 3).astype(np.float32)   # the plane z = 2, t_z = 0
+    edges = []
+    for step in (1, 4):
+        for i in range(n_poses - step):
+            edges += [(i, i + step), (i + step, i)]
+    for k in range(16, n_poses, 16):
+        edges += [(0, k), (k, 0)]
+    E = 1
+    while E < len(edges):
+        E *= 2
+    hw = h * w
+    ii, jj = np.zeros(E, np.int32), np.zeros(E, np.int32)
+    idx, vm = np.zeros((E, hw), np.int32), np.zeros((E, hw), bool)
+    ev = np.zeros(E, bool)
+    uf, vf = u.reshape(-1), v.reshape(-1)
+    for e, (i, j) in enumerate(edges):
+        ui = uf + shift[j] - shift[i]                   # pixel of frame j's point in i
+        ok = (ui >= 1) & (ui < w - 1) & (vf >= 1) & (vf < h - 1)
+        ii[e], jj[e], ev[e] = i, j, True
+        idx[e] = np.clip(vf * w + ui, 0, hw - 1)
+        vm[e] = ok
+    Xs = np.broadcast_to(X, (n_poses, hw, 3)).copy()
+    Cs = np.full((n_poses, hw, 1), 5.0, np.float32)
+    Q = np.full((E, hw, 1), 4.0, np.float32)
+    return T_gt, Xs, Cs, K, ii, jj, idx, vm, Q, ev, np.ones(n_poses, bool)
+
+
+def solver_golden(dev) -> str:
+    """Phase 9a: the PCG solver against the dense GN on the chain graph."""
+    import torch
+    from artdeco_tpu_torch.geometry import lie
+    from artdeco_tpu_torch.vslam import global_opt as go
+
+    T_gt, *arrays = chain_graph(CHAIN_POSES, CHAIN_W, CHAIN_H)
+    Xs, Cs, K, ii, jj, idx, vm, Q, ev, used = (torch.as_tensor(a, device=dev) for a in arrays)
+    g = torch.Generator().manual_seed(1)
+    xi = 0.08 * torch.randn(CHAIN_POSES, 7, generator=g)
+    xi[0] = 0
+    T0 = lie.sim3_mul(lie.sim3_exp(xi.to(dev)), torch.as_tensor(T_gt, device=dev))
+    kw = dict(max_iter=10, delta_thresh=1e-10, chunk=32)     # config's max_iters
+    out = {}
+    for name, solver in (("dense", go.gauss_newton_calib),
+                         ("sparse", go.gauss_newton_calib_sparse)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[name] = solver(T0, Xs, Cs, K, ii, jj, idx, vm, Q, ev, used, CHAIN_H, CHAIN_W, **kw)
+        torch.cuda.synchronize()
+        out[name + "_ms"] = 1e3 * (time.perf_counter() - t0)
+
+    def err(a, b):
+        return torch.linalg.vector_norm(lie.sim3_log(lie.sim3_mul(lie.sim3_inv(a), b)), dim=-1)
+
+    gap = float(err(out["dense"], out["sparse"]).max())
+    Tg = torch.as_tensor(T_gt, device=dev)
+    e0, e1 = float(err(T0, Tg)[1:].median()), float(err(out["sparse"], Tg)[1:].median())
+    check(gap < 5e-4, f"PCG and dense GN poses {gap} apart in the Sim(3) log")
+    check(e1 < 0.05 * e0, f"PCG pose error {e1} from {e0}")
+    return (f"chain of {CHAIN_POSES} poses at {CHAIN_W}x{CHAIN_H}, {int(ev.sum())} directed "
+            f"edges (E {len(ev)}), 10 GN iterations: PCG and dense poses {gap:.3g} apart "
+            f"(Sim(3) log, max); median pose error {e0:.4f} -> {e1:.3g}; dense "
+            f"{out['dense_ms']:.1f} ms, PCG {out['sparse_ms']:.1f} ms (host clock, first call)")
+
+
+class _StubRetrieval:
+    """Pose-aware retrieval stand-in (``tests/test_reloc.py``'s): the
+    stored keyframes whose ground-truth x lies within ``overlap_x`` of the
+    query frame's (the oracle's token carries the frame id)."""
+
+    def __init__(self, dataset, keyframes, overlap_x):
+        self.dataset, self.keyframes, self.overlap_x = dataset, keyframes, overlap_x
+        self._stored: list = []
+
+    def update(self, feat, add_after_query=True, k=3, min_thresh=0.0):
+        fid = int(np.asarray(feat)[0, 0])
+        x_q = self.dataset.Twc_gt[fid][0]
+        hits = [kf for kf, f in self._stored
+                if abs(self.dataset.Twc_gt[f][0] - x_q) < self.overlap_x]
+        if add_after_query:
+            self._stored.append((len(self.keyframes) - 1 if len(self.keyframes) else 0, fid))
+        return hits[:k]
+
+
+def teleport_phase(dev, cfg) -> str:
+    """Phase 9b: ``tests/test_reloc.py``'s teleport protocol at 512x384,
+    its steps scaled to the width (12.8 px a frame): a walk of 3.25 units
+    along x (the view is 2.5 units wide), then back near the origin."""
+    import copy
+
+    from artdeco_tpu_torch.dataio.dataset import SyntheticDataset
+    from artdeco_tpu_torch.runtime.system import System
+
+    args = system_args(max_size_slam=SYS_W, test_hold=-1, num_key_iterations=2,
+                       num_common_iterations=1)
+    ds = SyntheticDataset(args, n_frames=TELE_TOTAL, width=SYS_W, height=SYS_H)
+    step = 3.25 / TELE_WALK
+    poses = np.zeros((TELE_TOTAL, 7))
+    poses[:, 6] = 1.0
+    for i in range(TELE_TOTAL):
+        poses[i, 0] = step * i if i < TELE_WALK else 0.05 + 0.08 * step * (i - TELE_WALK)
+    ds.Twc_gt = poses
+    tcfg = copy.deepcopy(cfg)
+    tcfg["tracking"]["match_frac_thresh"] = 0.95
+    from artdeco_tpu_torch.models.oracle import OracleRunner
+
+    runner = OracleRunner((ds.H_slam, ds.W_slam), ds.K_slam, tcfg["matching"], device=dev)
+    register_stream(runner, ds)
+    sys_ = System(args, tcfg, ds, runner, retrieval="stub", device=dev)
+    sys_.backend.retrieval = _StubRetrieval(ds, sys_.keyframes, overlap_x=1.0)
+    sys_.run(progress=False)
+    lost = sys_.frontend.lost_number
+    n_kf = len(sys_.keyframes)
+    fids = sys_.keyframes.dataset_idx[:n_kf].tolist()
+    post = [i for i, f in enumerate(fids) if f >= TELE_WALK]
+    check(lost >= 1, "the teleport lost no frame")
+    check(bool(post), f"no keyframe after the teleport (keyframes at {fids})")
+    errs = [float(np.abs(sys_.keyframes.T_WC[i][:3] - ds.Twc_gt[fids[i]][:3]).max())
+            for i in post]
+    check(max(errs) < 0.15, f"post-teleport keyframe position errors {errs}")
+    est = sys_.frontend.estimated_trajectory()
+    after = [r for r in est if int(r[0]) > TELE_WALK]
+    check(len(after) >= 2, f"{len(after)} tracked frames after the teleport (lost {lost}, "
+          f"keyframes at {fids}, tracked frames {[int(r[0]) for r in est]})")
+    x_err = max(abs(r[1] - ds.Twc_gt[int(r[0])][0]) for r in after)
+    check(x_err < 0.2, f"post-teleport frames {x_err} from ground truth in x")
+    return (f"teleport stream {SYS_W}x{SYS_H}, {TELE_TOTAL} frames (walk {TELE_WALK} x "
+            f"{step:.4f}): lost {lost}; keyframes {n_kf}, the relocalized ones at frames "
+            f"{[fids[i] for i in post]} within {max(errs):.4f} of ground truth; "
+            f"{len(after)} frames tracked after it, within {x_err:.4f} in x")
 
 def main() -> int:
     sys.path.insert(0, ROOT)
@@ -622,21 +989,37 @@ def main() -> int:
     print(f"phase 7 profile: {profile_window(track_more, N_PROFILED_FRAMES, 'frames')}",
           flush=True)
 
+    # -- 8. the full system ------------------------------------------------
+    sys_launches = full_system_phase(dev, tcfg)
+    for name in ("fwd", "bwd", "k3"):
+        check(sys_launches[name] > 0, f"the full system launched no {name}")
+
+    # -- 9. the solvers and relocalization -------------------------------------
+    print(f"phase 9 solver golden: {solver_golden(dev)}", flush=True)
+    print(f"phase 9 relocalization: {teleport_phase(dev, tcfg)}", flush=True)
+
+    # each path's own counts: the mapper stream (3), tracking (7), the system (8)
+    by_phase = {"fwd": {"phase 3": launches["fwd"], "phase 8": sys_launches["fwd"]},
+                "bwd": {"phase 3": launches["bwd"], "phase 8": sys_launches["bwd"]},
+                "k3": {"phase 7": k3_launches, "phase 8": sys_launches["k3"]}}
     src = "artdeco_tpu_torch/csrc/composite.cu"
     print(json.dumps({"kernels": [
         {"name": "composite_fwd", "route": "cuda", "source": src,
          "replaces": "artdeco_tpu/ops/splat/composite.py:113",
-         "launches": launches["fwd"], "max_abs_err": big["fwd_err"],
+         "launches": sys_launches["fwd"], "launches_by_phase": by_phase["fwd"],
+         "max_abs_err": big["fwd_err"],
          "ms": big["fwd_ms"], "plain_ms": big["fwd_plain_ms"],
          "bound_ms": big["fwd_bound"], "bound_by": big["fwd_by"], "library_ms": None},
         {"name": "composite_bwd", "route": "cuda", "source": src,
          "replaces": "artdeco_tpu/ops/splat/composite.py:152",
-         "launches": launches["bwd"], "max_abs_err": big["bwd_err"],
+         "launches": sys_launches["bwd"], "launches_by_phase": by_phase["bwd"],
+         "max_abs_err": big["bwd_err"],
          "ms": big["bwd_ms"], "plain_ms": big["bwd_plain_ms"],
          "bound_ms": big["bwd_bound"], "bound_by": big["bwd_by"], "library_ms": None},
         {"name": "window_argmax", "route": "cuda", "source": "artdeco_tpu_torch/csrc/refine.cu",
          "replaces": "artdeco_tpu/ops/refine_pallas.py:30",
-         "launches": k3_launches, "max_abs_err": k3["err"],
+         "launches": sys_launches["k3"], "launches_by_phase": by_phase["k3"],
+         "max_abs_err": k3["err"],
          "ms": k3["ms"], "plain_ms": k3["plain_ms"],
          "bound_ms": k3_bound, "bound_by": k3_by, "library_ms": None},
     ]}), flush=True)

@@ -1,7 +1,8 @@
 """The port's entry points run on the card unless the caller asks for the CPU.
 
-Each of ``MapperStage``, ``SceneModel``, ``Frontend``, ``OracleRunner`` and
-``KeyframeStore`` takes ``device=None`` and resolves it through
+Each of ``MapperStage``, ``SceneModel``, ``Frontend``, ``OracleRunner``,
+``KeyframeStore``, ``System``, ``Backend`` and ``FactorGraph`` takes
+``device=None`` and resolves it through
 ``device.require_cuda``: with no CUDA device present and no device passed,
 it raises that function's error (there is no CPU fallback); a device that
 is passed is used as it is.
@@ -16,9 +17,11 @@ import torch
 from artdeco_tpu_torch.dataio.dataset import SyntheticDataset
 from artdeco_tpu_torch.mapper.scene_model import SceneModel
 from artdeco_tpu_torch.models.oracle import OracleRunner
-from artdeco_tpu_torch.runtime.system import MapperStage
+from artdeco_tpu_torch.runtime.system import MapperStage, System
 from artdeco_tpu_torch.utils.config import load_config
+from artdeco_tpu_torch.vslam.backend import Backend
 from artdeco_tpu_torch.vslam.frontend import Frontend
+from artdeco_tpu_torch.vslam.global_opt import FactorGraph
 from artdeco_tpu_torch.vslam.keyframes import KeyframeStore
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -42,10 +45,17 @@ def _entry_points():
                                                   cfg["matching"], **kw),
         "KeyframeStore": lambda **kw: KeyframeStore(ds.H_slam, ds.W_slam, ds.K_slam,
                                                     buffer=4, **kw),
+        "System": lambda **kw: System(types.SimpleNamespace(retrieval_checkpoint_path=""),
+                                      cfg, ds, runner, **kw),
+        "Backend": lambda **kw: Backend(types.SimpleNamespace(), cfg, ds, store, runner,
+                                        **kw),
+        "FactorGraph": lambda **kw: FactorGraph(cfg, runner, store, ds.K_slam,
+                                                (ds.H_slam, ds.W_slam), **kw),
     }
 
 
-ENTRY_POINTS = ["MapperStage", "SceneModel", "Frontend", "OracleRunner", "KeyframeStore"]
+ENTRY_POINTS = ["MapperStage", "SceneModel", "Frontend", "OracleRunner", "KeyframeStore",
+                "System", "Backend", "FactorGraph"]
 
 
 @pytest.mark.parametrize("name", ENTRY_POINTS)

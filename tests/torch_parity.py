@@ -105,3 +105,25 @@ def jax_frontend_state(fe) -> dict:
                       lost_number=fe.lost_number,
                       frames_info=[(f, ts, i, a(T)) for f, ts, i, T in fe.frames_info]),
     )
+
+
+def jax_backend_state(bk) -> dict:
+    """A JAX ``Backend``'s factor graph and retrieval database as the dict
+    of numpy arrays that ``artdeco_tpu_torch.vslam.state_io.
+    backend_state_from_numpy`` takes."""
+    fg, db = bk.factor_graph, bk.retrieval
+    n = fg.n_directed
+    a = np.asarray
+    return dict(
+        factor_graph=dict(
+            n_directed=n, ii=list(fg.ii), jj=list(fg.jj), e_ii=fg.e_ii.copy(),
+            e_jj=fg.e_jj.copy(), e_valid=fg.e_valid.copy(),
+            idx=a(fg._dev_edges["idx"])[:n], vm=a(fg._dev_edges["vm"])[:n],
+            q=a(fg._dev_edges["q"])[:n]),
+        retrieval=dict(
+            centroids=None if db.centroids is None else db.centroids.copy(),
+            ivf={c: (list(v[0]), [a(x) for x in v[1]]) for c, v in db.ivf.items()},
+            image_norms=list(db.image_norms), kf_counter=db.kf_counter,
+            sim={i: dict(r) for i, r in db.sim_graph.sim.items()},
+            pending=None if db._pending is None else [a(x) for x in db._pending]),
+    )
