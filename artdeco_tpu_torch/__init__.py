@@ -7,13 +7,16 @@ never ``jax``, nor the JAX package: its host-side inputs
 ``SyntheticDataset``) are its own copies, held to the originals by the
 parity tests.
 
-Ported so far: the whole single-host system on the oracle runner
-(``runtime/system.System``, entry point ``run_system``): the tracking
-frontend with the matching cascade and the refine kernel (``csrc/refine.cu``),
-the backend (``vslam/backend.py``, ``vslam/global_opt.py``,
-``vslam/retrieval.py``), and the online mapper (``mapper/``) with its
-rasterizer (``ops/splat/``) and the tile compositor as hand-written CUDA
-kernels (``csrc/composite.cu``).
+Ported so far: the whole single-host system (``runtime/system.System``,
+entry point ``run_system``), driven by MASt3R (``models/mast3r.py``,
+``models/mast3r_infer.py``) with Pi3 accurate loop closure
+(``models/pi3.py``, ``vslam/accurate_lc.py``) or by the oracle runner: the
+tracking frontend with the matching cascade and the refine kernel
+(``csrc/refine.cu``), the backend (``vslam/backend.py``,
+``vslam/global_opt.py``, ``vslam/retrieval.py``), and the online mapper
+(``mapper/``) with its rasterizer (``ops/splat/``), the tile compositor as
+hand-written CUDA kernels (``csrc/composite.cu``) and LPIPS
+(``eval/lpips.py``).
 """
 
 __version__ = "0.1.0"

@@ -24,3 +24,11 @@ def resolve(device=None) -> torch.device:
     """``device`` as a ``torch.device``; None means the CUDA device
     (``require_cuda``, which raises when there is none)."""
     return require_cuda() if device is None else torch.device(device)
+
+
+def float32_policy() -> None:
+    """float32 work stays float32 on the card: no TF32 in matmuls or cuDNN
+    convolutions (the JAX package's float32 semantics; the MASt3R heads'
+    convolutions and the solvers' products depend on it)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False

@@ -76,8 +76,9 @@ def save_gaussian_ply(path: str, scene_model) -> int:
                      + 1e-30)
     rotation = _np(slab.rotation)[sel] * sr[:, 3:7]
     # channel-major coefficients (torch's transpose(1, 2).flatten layout)
-    f_dc_flat = f_dc.transpose(0, 2, 1).reshape(len(sel), -1)
-    f_rest_flat = f_rest.transpose(0, 2, 1).reshape(len(sel), -1)
+    # (explicit widths: an empty scene has no -1 to infer)
+    f_dc_flat = f_dc.transpose(0, 2, 1).reshape(len(sel), f_dc.shape[1] * f_dc.shape[2])
+    f_rest_flat = f_rest.transpose(0, 2, 1).reshape(len(sel), f_rest.shape[1] * f_rest.shape[2])
     cols = ([xyz[:, i] for i in range(3)]
             + [np.zeros(len(sel), np.float32)] * 3
             + [f_dc_flat[:, i] for i in range(3)]
@@ -218,9 +219,11 @@ def write_png(path: str, rgb: np.ndarray):
 # ---------------------------------------------------------------------------
 
 def save_scene(scene_model, path: str, reconstruction_time: float = 0.0,
-               n_frames: int = 0, save_renders: bool = True) -> dict:
-    """Metrics (``evaluate``; no LPIPS until it is ported) and, when
-    ``path`` is set, every export file under it.  Returns the metrics."""
+               n_frames: int = 0, save_renders: bool = True,
+               with_lpips: bool = True) -> dict:
+    """Metrics (``evaluate``, LPIPS included unless ``with_lpips`` is off)
+    and, when ``path`` is set, every export file under it.  Returns the
+    metrics."""
     from artdeco_tpu_torch.mapper import keyframe as KFmod
 
     metrics = {"num keyframes": len(scene_model.keyframes),
@@ -229,7 +232,7 @@ def save_scene(scene_model, path: str, reconstruction_time: float = 0.0,
         metrics["time"] = reconstruction_time
         if n_frames > 0:
             metrics["FPS"] = n_frames / reconstruction_time
-    metrics.update(scene_model.evaluate())
+    metrics.update(scene_model.evaluate(with_lpips=with_lpips))
     if not path:
         return metrics
     os.makedirs(path, exist_ok=True)

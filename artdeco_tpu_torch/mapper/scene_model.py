@@ -740,11 +740,17 @@ class SceneModel:
                 expo[i] = (expo[im] + expo[ip]) / 2.0
 
     @torch.no_grad()
-    def evaluate(self) -> dict:
+    def evaluate(self, with_lpips: bool = False) -> dict:
         """Mean PSNR / SSIM / visible count / active count over the test
-        keyframes, rendered at map resolution (LPIPS is not ported)."""
+        keyframes, rendered at map resolution; with ``with_lpips`` also the
+        mean LPIPS (``eval.lpips.get_default_lpips``)."""
         self.harmonize_test_exposure()
         metrics = {"PSNR": 0.0, "SSIM": 0.0, "Render": 0.0, "GS": 0.0}
+        if with_lpips:
+            from artdeco_tpu_torch.eval.lpips import get_default_lpips
+
+            lpips_fn = get_default_lpips()
+            metrics["LPIPS"] = 0.0
         n_test = 0
         n_active = float(self.slab.num_active())
         for kf in self.keyframes:
@@ -755,6 +761,8 @@ class SceneModel:
             img = pkg["render"]
             metrics["PSNR"] += float(losses.psnr(img, gt))
             metrics["SSIM"] += float(fused_ssim(img, gt))
+            if with_lpips:
+                metrics["LPIPS"] += float(lpips_fn(img, gt))
             metrics["Render"] += float(torch.sum(pkg["visibility"]))
             metrics["GS"] += n_active
             n_test += 1

@@ -40,7 +40,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from artdeco_tpu_torch.device import resolve
+from artdeco_tpu_torch.device import float32_policy, resolve
 from artdeco_tpu_torch.geometry import lie
 from artdeco_tpu_torch.mapper import keyframe as KF
 from artdeco_tpu_torch.mapper.config import MapperConfig
@@ -50,7 +50,7 @@ from artdeco_tpu_torch.vslam.backend import Backend
 from artdeco_tpu_torch.vslam.frontend import Frontend
 from artdeco_tpu_torch.vslam.keyframes import KeyframeStore
 
-METRIC_KEYS = ("PSNR", "SSIM", "Render", "GS", "n_test_frames")
+METRIC_KEYS = ("PSNR", "SSIM", "LPIPS", "Render", "GS", "n_test_frames")
 
 
 def se3_w2c_matrix_np(T_wc7: np.ndarray) -> np.ndarray:
@@ -450,6 +450,7 @@ class System:
         self.config = config
         self.dataset = dataset
         self.device = resolve(device)
+        float32_policy()
         if int(getattr(args, "n_devices", 1) or 1) > 1:
             raise NotImplementedError("--n_devices > 1: the multi-device mesh is not ported")
         self._maybe_auto_calibrate(args, dataset, runner)

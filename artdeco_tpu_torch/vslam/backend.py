@@ -32,6 +32,13 @@ from artdeco_tpu_torch.vslam.keyframes import KeyframeStore
 from artdeco_tpu_torch.vslam.retrieval import RetrievalDatabase
 
 
+def host_tokens(feat) -> np.ndarray:
+    """The first image's encoder tokens as one explicit host float32 copy
+    (the retrieval database runs on the host; a model's ``feat`` is a
+    device tensor, the oracle's a host token)."""
+    return feat[0].detach().to(device="cpu", dtype=torch.float32, copy=True).numpy()
+
+
 def dense_point(idx, Xkk, Twk, Twl, K, height: int, width: int, valid_pixel: float = 3.0):
     """The mapper's pointmap of keyframe k and its confidence from the
     matches ``idx`` (HW,) of the last keyframe l's pixels into k.
@@ -128,7 +135,7 @@ class Backend:
 
     def _retrieve(self, feat, add_after_query: bool) -> list:
         rc = self.config["retrieval"]
-        return self.retrieval.update(np.asarray(feat[0]), add_after_query=add_after_query,
+        return self.retrieval.update(host_tokens(feat), add_after_query=add_after_query,
                                      k=rc["k"], min_thresh=rc["min_thresh"])
 
     # -- message dispatch --------------------------------------------------
@@ -265,13 +272,18 @@ class Backend:
 
     # -- relocalization --------------------------------------------------------
     def relocalization(self, frame: Frame, feat, pos):
-        """A lost frame: retrieve candidates, append the frame as a keyframe,
-        verify with a strict two-way match (undo on failure), take the
-        first candidate's pose and solve.  Returns (success, lc_inds)."""
+        """A lost frame: append it as a keyframe, retrieve candidates, verify
+        with a strict two-way match (undo on failure), take the first
+        candidate's pose and solve.  Returns (success, lc_inds).
+
+        The frame is appended before the query (the JAX package appends it
+        after), so that a Pi3 accurate matcher finds the query's image under
+        its keyframe id; the retrieval query itself reads no keyframe."""
+        idx = self.keyframes.append(frame)
         retrieval_inds = self._retrieve(feat, add_after_query=False)
         if not retrieval_inds:
+            self.keyframes.pop_last()
             return False, set()
-        idx = self.keyframes.append(frame)
         self.keyframes.put_embedding(idx, feat, pos)
         ok = self.factor_graph.add_factors(
             list(retrieval_inds), [idx] * len(retrieval_inds),

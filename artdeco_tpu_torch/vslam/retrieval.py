@@ -8,8 +8,8 @@ the same candidate lists and scores as the JAX package's copy
 (``tests/test_torch_backend.py``).
 
 The Pi3 "accurate loop closure" verification plugs in through
-``accurate_matcher``; ``build_retrieval_database`` raises for
-``--accurate_loop_closure`` until Pi3 is ported (``ROADMAP.md``).
+``accurate_matcher``; ``build_retrieval_database`` builds it
+(``vslam/accurate_lc.py``) for ``--accurate_loop_closure``.
 """
 
 from __future__ import annotations
@@ -443,11 +443,18 @@ def build_retrieval_database(args, config: dict, keyframes) -> RetrievalDatabase
               + (" (+ codebook)" if centroids is not None else
                  " (kmeans codebook bootstrap from keyframe features)"))
 
+    accurate_matcher = None
     if getattr(args, "accurate_loop_closure", False):
-        raise NotImplementedError(
-            "--accurate_loop_closure needs Pi3, which is not ported yet "
-            "(ROADMAP.md queue 1, item 7)")
+        from artdeco_tpu_torch.models.pi3 import load_pi3_apply
+        from artdeco_tpu_torch.vslam.accurate_lc import make_pi3_accurate_matcher
+
+        pi3_apply, resize_hw = load_pi3_apply(
+            getattr(args, "pi3_checkpoint_path", "") or "",
+            full=getattr(args, "model_size", "full") == "full", device=keyframes.device)
+        accurate_matcher = make_pi3_accurate_matcher(
+            pi3_apply, keyframes, config["matching"], resize_hw=resize_hw,
+            pad_to=RetrievalDatabase.MAX_WINDOW_NUMBER)
 
     return RetrievalDatabase(
-        config, head=head, centroids=centroids,
+        config, head=head, centroids=centroids, accurate_matcher=accurate_matcher,
     )

@@ -3,11 +3,13 @@
 
     python3 chip_smoke.py
 
-Drives the port's two main paths at full width and checks them: the
-online mapper (``MapperStage``) over a 16-frame 512x384 synthetic plane
-stream at the ``MapperConfig`` defaults, and the tracking frontend
-(``Frontend`` + ``OracleRunner``) over a 120-frame 512x384 stream with
-``config/base.yaml`` as it is.
+Drives the port's main paths at full width and checks them: the online
+mapper (``MapperStage``) over a 16-frame 512x384 synthetic plane stream at
+the ``MapperConfig`` defaults, the tracking frontend (``Frontend`` +
+``OracleRunner``) over a 120-frame 512x384 stream with
+``config/base.yaml`` as it is, the full ``System`` on the oracle stream,
+and the model-driven ``System`` (full-width MASt3R and Pi3) through
+``run_system.main``.
 
 1. device: a CUDA device is required; prints ``nvidia-smi``'s name and
    power limit; builds the CUDA kernels from ``artdeco_tpu_torch/csrc``
@@ -67,11 +69,29 @@ stream at the ``MapperConfig`` defaults, and the tracking frontend
    relocalization appends a keyframe near the ground truth, and the frames
    after it track.
 
+10. the model-driven system: (a) the full MASt3R (ViT-L, bf16 trunk,
+   float32 heads) on seeded random weights drawn on the card, at 512x384:
+   device ms of the encoder, the decoders with heads, a tracking match and
+   a symmetric match of 4 edges, peak memory, and the bf16 model against a
+   float32 copy of its weights; (b) the full Pi3 over 24 frames at 392x518
+   (device ms, peak memory) and the accurate matcher once over 23
+   candidates (fractions finite, in [0, 1]); (c) ``run_system.main`` as
+   users run it without ``--oracle`` (``--model_size full
+   --accurate_loop_closure``, no checkpoint: random weights) over a 32-frame
+   512x384 synthetic stream, saved with LPIPS: K1, K2 and K3 must each have
+   launched, the metrics must be finite and the entry point must have set
+   the float32 policy; prints ms per frame, FPS, the stage split,
+   keyframes, lost frames, Pi3 calls and LPIPS.  Random weights give no
+   geometry: matches are invalid and frames are lost, so (c) times the
+   model path's cost (lost frames run relocalization with Pi3), not its
+   tracking.
+
 Prints one line per phase, then a JSON line of the kernels and, last,
 ``{"ok": true, "device": {...}}``.  Any failed check raises: the exit code
 is then not 0 and the last line is not printed.
 """
 
+import dataclasses
 import gc
 import json
 import os
@@ -99,6 +119,12 @@ SYS_W, SYS_H, SYS_FRAMES = 512, 384, 240
 SYS_PROFILED = (66, 74)     # frames around the second keyframe (frame 70)
 CHAIN_POSES, CHAIN_W, CHAIN_H = 264, 128, 96
 TELE_WALK, TELE_TOTAL = 52, 58
+MODEL_SIZE = "full"          # phase 10: MASt3RConfig() and Pi3Config() ("tiny": test widths)
+MODEL_W, MODEL_H = 512, 384  # a MASt3R frame: 32x24 tokens
+MODEL_EDGES = 4              # edges of the timed symmetric match (8 decoded pairs)
+MODEL_TIMED = 5
+PI3_FRAMES = 24              # the accurate matcher's window (23 candidates and the query)
+SYS10_FRAMES = 32            # depth of the model-driven System run
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense; at a 700 W
 # limit): float32 outside the tensor cores, bf16 on the tensor cores (f32
@@ -749,6 +775,216 @@ def teleport_phase(dev, cfg) -> str:
             f"{[fids[i] for i in post]} within {max(errs):.4f} of ground truth; "
             f"{len(after)} frames tracked after it, within {x_err:.4f} in x")
 
+def model_frames(n: int, w: int, h: int, dev):
+    """``n`` SLAM images (3, h, w) in [-1, 1] of the synthetic stream on
+    ``dev``, 8 frames apart."""
+    import torch
+    from artdeco_tpu_torch.dataio.dataset import SyntheticDataset
+
+    ds = SyntheticDataset(types.SimpleNamespace(test_hold=-1, max_size_slam=w),
+                          n_frames=8 * n, width=w, height=h)
+    return [torch.as_tensor(ds.transform.to_slam(ds[8 * i][0]), device=dev) for i in range(n)]
+
+
+def mast3r_phase(dev, cfg) -> str:
+    """Phase 10a: the full MASt3R (bf16 trunk, float32 heads) on seeded
+    random weights drawn on the card, at 512x384: device ms of the encoder,
+    of both decoders plus heads, of a tracking match (the keyframe's
+    embedding reused, one encode) and of a symmetric match of
+    ``MODEL_EDGES`` edges; peak memory; the bf16 model against a float32
+    copy of the same weights (points, descriptors)."""
+    import torch
+    from artdeco_tpu_torch.models import mast3r as M
+    from artdeco_tpu_torch.models.mast3r_infer import Mast3rRunner
+
+    mcfg = M.MASt3RConfig() if MODEL_SIZE == "full" else M.tiny_config()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    t0 = time.time()
+    runner = Mast3rRunner.create(mcfg, cfg["matching"], device=dev, generator=gen)
+    torch.cuda.synchronize()
+    build_s = time.time() - t0
+    n_params = sum(p.numel() for p in runner.model.parameters())
+    img_i, img_j = model_frames(2, MODEL_W, MODEL_H, dev)
+    hw = (MODEL_H, MODEL_W)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    emb_i, emb_j = runner.encode_image(img_i[None]), runner.encode_image(img_j[None])
+    enc_ms = cuda_ms(lambda: runner.encode_image(img_i[None]), MODEL_TIMED)
+    dec_ms = cuda_ms(lambda: runner.decode(*emb_i, *emb_j, hw), MODEL_TIMED)
+    asym_ms = cuda_ms(lambda: runner.match_asymmetric(img_i, img_j, embeddings_j=emb_j),
+                      MODEL_TIMED)
+    b = MODEL_EDGES
+    fi, pi = emb_i[0].expand(b, -1, -1), emb_i[1].expand(b, -1, -1)
+    fj, pj = emb_j[0].expand(b, -1, -1), emb_j[1].expand(b, -1, -1)
+    sym = runner.match_symmetric(fi, pi, fj, pj, hw)
+    sym_ms = cuda_ms(lambda: runner.match_symmetric(fi, pi, fj, pj, hw), MODEL_TIMED)
+    torch.cuda.synchronize()
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    prof = profile_window(lambda: runner.match_asymmetric(img_i, img_j, embeddings_j=emb_j),
+                          1, "matches")
+    r1, r2 = runner.decode(*emb_i, *emb_j, hw)
+    for r in (r1, r2):
+        for k, v in r.items():
+            check(bool(torch.isfinite(v).all()), f"MASt3R {k} not finite")
+    check(all(bool(torch.isfinite(q).all()) for q in sym[4:]), "symmetric match Q not finite")
+    # the same weights in float32: the bf16 trunk's values are exact in f32
+    cfg32 = dataclasses.replace(mcfg, compute_dtype=torch.float32)
+    f32 = Mast3rRunner(cfg32, M.empty_mast3r(cfg32, dev), cfg["matching"], device=dev)
+    f32.model.load_state_dict(runner.model.state_dict())
+    q1, _ = f32.decode(*f32.encode_image(img_i[None]), *f32.encode_image(img_j[None]), hw)
+    x_err = float((r1["pts3d"] - q1["pts3d"]).abs().max() / q1["pts3d"].abs().max())
+    cos = (r1["desc"] * q1["desc"]).sum(-1)
+    del f32, q1
+    gc.collect()
+    torch.cuda.empty_cache()
+    return (f"MASt3R {MODEL_SIZE} ({n_params / 1e6:.1f} M parameters, random weights drawn "
+            f"on the card in {build_s:.1f} s) at {MODEL_W}x{MODEL_H}: encoder "
+            f"{enc_ms:.3f} ms, decoders + heads {dec_ms:.3f} ms, match_asymmetric (one "
+            f"encode) {asym_ms:.3f} ms, match_symmetric of {b} edges {sym_ms:.3f} ms "
+            f"(device ms, median of {MODEL_TIMED}; the matches sync the host once a row); "
+            f"peak memory {peak_mib:.1f} MiB; bf16 against a float32 copy: points within "
+            f"{x_err:.3g} of their largest magnitude, descriptor cosine mean "
+            f"{float(cos.mean()):.5f} min {float(cos.min()):.5f}; profile of one "
+            f"match_asymmetric: {prof}")
+
+
+def pi3_phase(dev, cfg) -> str:
+    """Phase 10b: the full Pi3 on seeded random weights drawn on the card,
+    ``PI3_FRAMES`` frames jointly at 392x518: device ms and peak memory;
+    then the accurate matcher once over 23 candidates and the query (from a
+    keyframe store at 512x384): fractions finite and in [0, 1]."""
+    import torch
+    from artdeco_tpu_torch.models.pi3 import load_pi3_apply
+    from artdeco_tpu_torch.vslam.accurate_lc import make_pi3_accurate_matcher
+    from artdeco_tpu_torch.vslam.frame import Frame
+    from artdeco_tpu_torch.vslam.keyframes import KeyframeStore
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    t0 = time.time()
+    apply, (h, w) = load_pi3_apply("", full=MODEL_SIZE == "full", device=dev, generator=gen)
+    torch.cuda.synchronize()
+    build_s = time.time() - t0
+    n_params = sum(p.numel() for p in apply.model.parameters())
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    imgs = torch.rand(1, PI3_FRAMES, 3, h, w, generator=g, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = apply(imgs)
+    for k, v in out.items():
+        check(bool(torch.isfinite(v).all()), f"Pi3 {k} not finite")
+    ms = cuda_ms(lambda: apply(imgs), 3)
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    store = KeyframeStore(MODEL_H, MODEL_W, buffer=PI3_FRAMES, device=dev)
+    T = torch.tensor([0, 0, 0, 0, 0, 0, 1, 1], dtype=torch.float32, device=dev)
+    for k, img in enumerate(model_frames(PI3_FRAMES, MODEL_W, MODEL_H, dev)):
+        store.append(Frame(img=img, T_WC=T, X_canon=None, C=None, N=None, frame_id=k,
+                           frame_time=float(k)))
+    matcher = make_pi3_accurate_matcher(apply, store, cfg["matching"], resize_hw=(h, w),
+                                        pad_to=PI3_FRAMES)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fracs = matcher(list(range(PI3_FRAMES - 1)), PI3_FRAMES - 1)
+    match_ms = 1e3 * (time.perf_counter() - t0)
+    check(len(fracs) == PI3_FRAMES - 1 and all(0.0 <= f <= 1.0 for f in fracs),
+          f"accurate matcher fractions {fracs}")
+    del apply, out, matcher
+    gc.collect()
+    torch.cuda.empty_cache()
+    return (f"Pi3 {MODEL_SIZE} ({n_params / 1e6:.1f} M parameters, random weights drawn on "
+            f"the card in {build_s:.1f} s), {PI3_FRAMES} frames at {w}x{h}: {ms:.2f} ms "
+            f"(device ms, median of 3), peak memory {peak_mib:.1f} MiB; accurate matcher "
+            f"over {PI3_FRAMES - 1} candidates: {match_ms:.1f} ms (host clock, synchronised), "
+            f"fractions {min(fracs):.4f}..{max(fracs):.4f}")
+
+
+def model_system_phase(dev) -> tuple:
+    """Phase 10c: ``run_system.main`` as users run it, without ``--oracle``:
+    the full MASt3R and Pi3 accurate loop closure on random weights (no
+    checkpoint: the entry point warns and draws them), ``SYS10_FRAMES``
+    frames of the synthetic stream at 512x384 (the dataset factory is
+    pointed at that stream; every flag is the entry point's), saved with
+    LPIPS.  Returns (summary, launches of K1, K2, K3 in the run)."""
+    import tempfile
+
+    import torch
+    from artdeco_tpu_torch import run_system
+    from artdeco_tpu_torch.dataio import dataset as D
+    from artdeco_tpu_torch.ops import refine_dense as RD
+    from artdeco_tpu_torch.ops.splat import composite as C
+    from artdeco_tpu_torch.runtime import system as S
+
+    seen = {}
+    load, save = D.load_dataset, S.System.save
+
+    def stream(args):
+        return D.SyntheticDataset(args, n_frames=SYS10_FRAMES, width=MODEL_W, height=MODEL_H)
+
+    def keep(self, out_dir):
+        seen["system"] = self
+        return save(self, out_dir)
+
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_model_")
+    argv = ["-s", "synthetic://", "-d", "synthetic", "--model_size", MODEL_SIZE,
+            "--accurate_loop_closure", "--test_hold", str(TEST_HOLD), "--max_size_slam",
+            str(MODEL_W), "--checkpoint_path", "", "--retrieval_checkpoint_path", "",
+            "--pi3_checkpoint_path", "", "-m", out_dir]
+    D.load_dataset, S.System.save = stream, keep
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    C.composite_fwd.launches = C.composite_bwd.launches = RD.window_argmax.launches = 0
+    t0 = time.time()
+    try:
+        meta = run_system.main(argv)
+    finally:
+        D.load_dataset, S.System.save = load, save
+    torch.cuda.synchronize()
+    run_s = time.time() - t0
+    launches = {"fwd": C.composite_fwd.launches, "bwd": C.composite_bwd.launches,
+                "k3": RD.window_argmax.launches}
+    sys_ = seen["system"]
+    check(not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32,
+          "the entry point left TF32 on")
+    for k in ("fwd", "bwd", "k3"):
+        check(launches[k] > 0, f"the model-driven System launched no {k}")
+    metrics = meta["metrics"]
+    check(all(np.isfinite(v) for v in metrics.values()), f"metrics {metrics}")
+    check(meta["n_frames"] == SYS10_FRAMES, f"{meta['n_frames']} frames")
+    pi3_calls = sys_.backend.retrieval.accurate_matcher.calls
+    n_kf = len(sys_.keyframes)
+    frame_ms = [1e3 * x for x in sys_.frame_s]
+    rt = meta["runtimes_ms"]
+    lpips = metrics.get("LPIPS")
+    if lpips is None:
+        # no test frame reached the mapper (random weights lose frames):
+        # LPIPS of keyframe 0's render against its image, a training view
+        from artdeco_tpu_torch.eval.lpips import get_default_lpips
+
+        sm = sys_.scene_model
+        render = sm.render_from_id(0, pyr_lvl=0)["render"]
+        kf0_lpips = float(get_default_lpips()(render, sm.keyframes[0].image_pyr[0].to(dev)))
+        check(np.isfinite(kf0_lpips), f"keyframe 0 LPIPS {kf0_lpips}")
+    summary = (
+        f"run_system.main {' '.join(argv[:-2])}: {SYS10_FRAMES} frames {MODEL_W}x{MODEL_H} "
+        f"in {run_s:.1f} s (model build and save included); "
+        f"{statistics.median(frame_ms):.2f} ms per frame (median; mean "
+        f"{statistics.mean(frame_ms):.2f}, max {max(frame_ms):.1f}), {meta['FPS']:.2f} FPS; "
+        f"stage ms per call: track {rt.get('track', 0):.2f}, backend {rt.get('backend', 0):.2f}"
+        f", map {rt.get('map', 0):.2f}; keyframes {n_kf} at frames "
+        f"{sys_.keyframes.dataset_idx[:n_kf].tolist()}; lost {sys_.frontend.lost_number}; "
+        f"mapper frames {sys_.mapper_index}; Pi3 calls {pi3_calls}; launches K1 "
+        f"{launches['fwd']} K2 {launches['bwd']} K3 {launches['k3']}; test frames "
+        f"{metrics.get('n_test_frames', 0)}, PSNR {metrics.get('PSNR', float('nan')):.2f} dB, "
+        + (f"LPIPS {lpips:.4f}" if lpips is not None else
+           f"LPIPS none (no test frame), keyframe 0's render {kf0_lpips:.4f}")
+        + f"; Gaussians "
+        f"{meta['n_gaussians']}; peak memory {torch.cuda.max_memory_allocated() / 2**20:.1f} "
+        f"MiB")
+    del sys_, seen
+    gc.collect()
+    torch.cuda.empty_cache()
+    return summary, launches
+
+
 def main() -> int:
     sys.path.insert(0, ROOT)
     try:
@@ -998,10 +1234,20 @@ def main() -> int:
     print(f"phase 9 solver golden: {solver_golden(dev)}", flush=True)
     print(f"phase 9 relocalization: {teleport_phase(dev, tcfg)}", flush=True)
 
-    # each path's own counts: the mapper stream (3), tracking (7), the system (8)
-    by_phase = {"fwd": {"phase 3": launches["fwd"], "phase 8": sys_launches["fwd"]},
-                "bwd": {"phase 3": launches["bwd"], "phase 8": sys_launches["bwd"]},
-                "k3": {"phase 7": k3_launches, "phase 8": sys_launches["k3"]}}
+    # -- 10. the model-driven system ----------------------------------------------
+    print(f"phase 10 MASt3R: {mast3r_phase(dev, tcfg)}", flush=True)
+    print(f"phase 10 Pi3: {pi3_phase(dev, tcfg)}", flush=True)
+    model_summary, model_launches = model_system_phase(dev)
+    print(f"phase 10 system: {model_summary}", flush=True)
+
+    # each path's own counts: the mapper stream (3), tracking (7), the oracle
+    # system (8), the model-driven system (10)
+    by_phase = {"fwd": {"phase 3": launches["fwd"], "phase 8": sys_launches["fwd"],
+                        "phase 10": model_launches["fwd"]},
+                "bwd": {"phase 3": launches["bwd"], "phase 8": sys_launches["bwd"],
+                        "phase 10": model_launches["bwd"]},
+                "k3": {"phase 7": k3_launches, "phase 8": sys_launches["k3"],
+                       "phase 10": model_launches["k3"]}}
     src = "artdeco_tpu_torch/csrc/composite.cu"
     print(json.dumps({"kernels": [
         {"name": "composite_fwd", "route": "cuda", "source": src,

@@ -1,7 +1,8 @@
 """The port's entry points run on the card unless the caller asks for the CPU.
 
 Each of ``MapperStage``, ``SceneModel``, ``Frontend``, ``OracleRunner``,
-``KeyframeStore``, ``System``, ``Backend`` and ``FactorGraph`` takes
+``KeyframeStore``, ``System``, ``Backend``, ``FactorGraph`` and
+``Mast3rRunner`` takes
 ``device=None`` and resolves it through
 ``device.require_cuda``: with no CUDA device present and no device passed,
 it raises that function's error (there is no CPU fallback); a device that
@@ -16,6 +17,8 @@ import torch
 
 from artdeco_tpu_torch.dataio.dataset import SyntheticDataset
 from artdeco_tpu_torch.mapper.scene_model import SceneModel
+from artdeco_tpu_torch.models.mast3r import tiny_config
+from artdeco_tpu_torch.models.mast3r_infer import Mast3rRunner
 from artdeco_tpu_torch.models.oracle import OracleRunner
 from artdeco_tpu_torch.runtime.system import MapperStage, System
 from artdeco_tpu_torch.utils.config import load_config
@@ -51,11 +54,12 @@ def _entry_points():
                                         **kw),
         "FactorGraph": lambda **kw: FactorGraph(cfg, runner, store, ds.K_slam,
                                                 (ds.H_slam, ds.W_slam), **kw),
+        "Mast3rRunner": lambda **kw: Mast3rRunner.create(tiny_config(), **kw),
     }
 
 
 ENTRY_POINTS = ["MapperStage", "SceneModel", "Frontend", "OracleRunner", "KeyframeStore",
-                "System", "Backend", "FactorGraph"]
+                "System", "Backend", "FactorGraph", "Mast3rRunner"]
 
 
 @pytest.mark.parametrize("name", ENTRY_POINTS)

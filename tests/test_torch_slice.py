@@ -119,13 +119,14 @@ def test_mapper_slice_matches_jax():
                                atol=1e-3)
 
 
-PORT_MODULES = (   # the mapper slice's, the tracking slice's and the backend's modules
+PORT_MODULES = (   # the mapper's, tracking's, the backend's and the models' modules
     "mapper.scene_model", "runtime.system", "ops.splat.composite", "kernels",
     "geometry.lie", "geometry.projection", "geometry.robust", "geometry.uncertainty",
     "ops.matching", "ops.refine_dense", "models.oracle", "vslam.frame", "vslam.keyframes",
     "vslam.tracker", "vslam.frontend", "vslam.state_io", "utils.config", "dataio.tum_io",
     "eval.trajectory", "vslam.retrieval", "vslam.global_opt", "vslam.backend",
     "mapper.scene_io", "geometry.calibration", "dataio.args", "run_system",
+    "models.mast3r", "models.mast3r_infer", "models.pi3", "vslam.accurate_lc", "eval.lpips",
 )
 
 
