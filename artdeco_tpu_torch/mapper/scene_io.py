@@ -2,7 +2,8 @@
 keyframe poses, camera-frustum PLY, test renders.
 
 Port of the writers of ``artdeco_tpu/mapper/scene_io.py`` (and
-``read_gaussian_ply``, for round trips).  The files are the JAX package's
+``read_gaussian_ply``, for round trips), and ``read_colmap_model``, the
+COLMAP dataset's reader.  The files are the JAX package's
 byte for byte given the same scene; the tensors come to the host once per
 file.  Test renders are written as PNG by a small zlib writer, so no image
 library is needed.  The viewer-side readers are not ported.
@@ -196,6 +197,41 @@ def write_colmap_model(out_dir: str, cameras: Dict, images: Dict):
             f.write(struct.pack("<Q", 0))  # no 2D points
     with open(os.path.join(out_dir, "points3D.bin"), "wb") as f:
         f.write(struct.pack("<Q", 0))
+
+
+def read_colmap_model(model_dir: str):
+    """Binary COLMAP reader (``cameras.bin``, ``images.bin``): the JAX
+    package's ``read_colmap_model``.  Returns ({camera_id: dict(model_id,
+    width, height, params)}, {image_id: dict(qvec, tvec, camera_id,
+    name)})."""
+    cameras = {}
+    with open(os.path.join(model_dir, "cameras.bin"), "rb") as f:
+        n = struct.unpack("<Q", f.read(8))[0]
+        num_params = {0: 3, 1: 4, 2: 4, 3: 5, 4: 8}  # SIMPLE_PINHOLE..OPENCV
+        for _ in range(n):
+            cid, model_id, w, h = struct.unpack("<iiQQ", f.read(24))
+            k = num_params.get(model_id, 4)
+            params = struct.unpack(f"<{k}d", f.read(8 * k))
+            cameras[cid] = dict(model_id=model_id, width=w, height=h, params=list(params))
+    images = {}
+    with open(os.path.join(model_dir, "images.bin"), "rb") as f:
+        n = struct.unpack("<Q", f.read(8))[0]
+        for _ in range(n):
+            iid = struct.unpack("<i", f.read(4))[0]
+            qvec = struct.unpack("<4d", f.read(32))
+            tvec = struct.unpack("<3d", f.read(24))
+            cam_id = struct.unpack("<i", f.read(4))[0]
+            name = b""
+            while True:
+                ch = f.read(1)
+                if ch == b"\x00":
+                    break
+                name += ch
+            n2d = struct.unpack("<Q", f.read(8))[0]
+            f.read(n2d * 24)
+            images[iid] = dict(qvec=list(qvec), tvec=list(tvec), camera_id=cam_id,
+                               name=name.decode())
+    return cameras, images
 
 
 def write_png(path: str, rgb: np.ndarray):

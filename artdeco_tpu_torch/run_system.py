@@ -4,10 +4,18 @@
         --model_size full --accurate_loop_closure --test_hold 8 -m out/ [--device cpu]
     python -m artdeco_tpu_torch.run_system -s synthetic:// -d synthetic --oracle \
         --test_hold 8 -m out/
+    python -m artdeco_tpu_torch.run_system -s /data/scene [--calib calib.yaml] -m out/
+    python -m artdeco_tpu_torch.run_system -s /data/rgbd_dataset_freiburg1_desk -d tum \
+        --downsampling 2 --test_hold 30 -m out/
+    python -m artdeco_tpu_torch.run_system -s /data/garden -d colmap --downsampling 2 -m out/
 
 Streams the dataset through tracking, the backend and the mapper on the GPU
 (or on ``--device``), then writes trajectories, metrics and the scene under
-``-m``.  The runner is MASt3R (``--model_size full``: ViT-L in bf16;
+``-m``.  ``-d`` picks the dataset: an image folder (``selfCaptured``, the
+default; read as a COLMAP scene when ``<source>/sparse/0`` holds a model),
+a TUM RGB-D sequence (``tum``), a COLMAP scene (``colmap``) or the
+procedural stream (``synthetic``).  Frames on disk come from the native C++
+loader where it applies.  The runner is MASt3R (``--model_size full``: ViT-L in bf16;
 ``tiny``: the test width in float32) with the weights of
 ``--checkpoint_path`` (a released ``.pth``, or ``.safetensors`` through the
 ``safetensors`` package) or, when there is no such file, seeded random
@@ -54,7 +62,7 @@ def main(argv=None):
     from artdeco_tpu_torch.dataio.args import get_args
     from artdeco_tpu_torch.dataio.dataset import load_dataset
     from artdeco_tpu_torch.device import float32_policy, resolve
-    from artdeco_tpu_torch.runtime.system import System
+    from artdeco_tpu_torch.runtime.system import System, stream_slam_images
     from artdeco_tpu_torch.utils.config import load_config
 
     args = get_args(argv)
@@ -73,19 +81,22 @@ def main(argv=None):
 
         runner = OracleRunner((dataset.H_slam, dataset.W_slam), dataset.K_slam,
                               config["matching"], device=device)
-        for i in range(len(dataset)):
-            img, info = dataset[i]
-            gt = info.get("Twc_gt")
-            if gt is None:
-                raise SystemExit("--oracle requires ground-truth poses")
+        if dataset.Twc_gt is None:
+            raise SystemExit("--oracle requires ground-truth poses")
+        # the oracle finds a frame by its bytes: register the SLAM images
+        # the stream will deliver (the native loader's, where it runs)
+        for i, slam in enumerate(stream_slam_images(dataset)):
             T = np.ones(8, np.float32)
-            T[:7] = gt
-            runner.register(dataset.transform.to_slam(img), i, T)
+            T[:7] = dataset.Twc_gt[i]
+            runner.register(slam, i, T)
     else:
         runner = _mast3r_runner(args, config, device)
 
     system = System(args, config, dataset, runner, device=device)
+    if system.auto_calib is not None:
+        print(f"auto-calibration: {system.auto_calib}")
     system.run()
+    print(f"loader: {system.loader}")
     for _ in getattr(args, "save_at_finetune_epoch", []) or []:
         system.finetune(1)
     meta = system.save(args.model_path or "output")

@@ -5,9 +5,11 @@ track -> backend -> map per frame (``System.run``).  By default the
 mapper-facing half (the backend's ``process_async`` and the mapper) runs on
 a worker thread, overlapping tracking, with the hard-sync keyframe barrier
 kept: everything the tracker reads is written on the main thread, so the
-trajectory is the sequential schedule's.  A background thread decodes
-frames and another uploads each SLAM image from pinned memory a few frames
-ahead of tracking.
+trajectory is the sequential schedule's.  Frames come from the native C++
+loader (``runtime/native_loader.py``: decode, SLAM and map images on its
+own threads) where it applies, else from a background thread that decodes
+them and runs the camera transform; another thread uploads each SLAM image
+from pinned memory a few frames ahead of tracking.
 
 Streams: the worker shares the main thread's CUDA stream (the device's
 default stream), so its work is ordered against tracking's without events
@@ -23,8 +25,8 @@ rigid transforms, densify, training bursts, metrics): ``System`` drives it
 with the backend's messages, and the mapper-only runs drive it with
 ``exact_mapper_messages``.
 
-Not ported: the native C++ loader, the ``--n_devices`` mesh, the viewers
-and the AOT prewarm machinery.
+Not ported: the ``--n_devices`` mesh, the viewers and the AOT prewarm
+machinery.
 """
 
 from __future__ import annotations
@@ -149,6 +151,29 @@ class Runtimes:
         return {k: 1000.0 * v[0] / max(v[1], 1) for k, v in self.data.items()}
 
 
+class MapCache:
+    """The native loader's map images by frame id, for the last ``size``
+    frames only: mapper messages refer to recent frames, and the upload
+    thread runs a few frames ahead.  The upload thread puts; the stream
+    loop and the mapper take."""
+
+    def __init__(self, size: int = 8):
+        self.size = size
+        self._items: dict = {}
+        self._lock = threading.Lock()
+
+    def put(self, frame_id: int, img) -> None:
+        with self._lock:
+            self._items[frame_id] = img
+            while len(self._items) > self.size:
+                del self._items[next(iter(self._items))]
+
+    def pop(self, frame_id: int):
+        """The frame's image, or None when it is not (or no longer) kept."""
+        with self._lock:
+            return self._items.pop(frame_id, None)
+
+
 class MapperStage:
     """Consumes mapper messages into a ``SceneModel`` on ``device``.
 
@@ -178,11 +203,15 @@ class MapperStage:
         self.rigid_transforms = 0        # loop-closure transforms of the scene
         self.start_time = time.time()
         self.n_frames = 0
+        self.map_cache = MapCache()      # the native loader's map images
+        # seconds and count of frames decoded again where no image came
+        self.decode_s = [0.0, 0]
 
     def _map_image(self, m: dict, img_map):
         """The message's map-resolution image in [0, 1] and its info: the
         frame's device SLAM image when the resolutions match, else the
-        image given, else the dataset's frame."""
+        image given, else the native loader's, else the dataset's frame
+        decoded again."""
         frame_id = m["frame_id"]
         info = dict(self.dataset.infos[self.dataset.image_name_list[frame_id]])
         same_res = (self.dataset.H_map == self.dataset.H_slam
@@ -192,8 +221,15 @@ class MapperStage:
             return (m["img_dev"] + 1.0) * 0.5, info
         if img_map is not None:
             return img_map, info
+        cached = self.map_cache.pop(frame_id)
+        if cached is not None:
+            return cached, info
+        t0 = time.time()
         original, info = self.dataset[frame_id]
-        return self.dataset.transform.to_map(original), info
+        out = self.dataset.transform.to_map(original)
+        self.decode_s[0] += time.time() - t0
+        self.decode_s[1] += 1
+        return out, info
 
     def handle(self, m: dict, img_map=None) -> dict:
         """One mapper message: ``ingest`` then ``train``.  Returns the
@@ -349,7 +385,10 @@ class _UploadAhead:
                 break
 
     def _upload(self, original_image):
-        host = self.transform.to_slam(original_image)
+        if isinstance(original_image, tuple) and original_image[0] == "native":
+            host = original_image[1]     # the native loader's SLAM image
+        else:
+            host = self.transform.to_slam(original_image)
         if self.stream is None:
             dev = torch.from_numpy(np.ascontiguousarray(host)).to(self.device)
         else:
@@ -436,6 +475,38 @@ class _MapperWorker:
             raise err
 
 
+def make_native_prefetcher(dataset, ring_size: int = 8, n_threads: int = 4):
+    """The native C++ decode + resize pipeline where it applies, else None
+    (the Python path then runs): the reference's rule (no undistortion
+    remap, image paths on disk) and a machine that can build it
+    (``native_loader.missing_toolchain``).  Once it applies, a failure to
+    build or run it raises."""
+    from artdeco_tpu_torch.runtime import native_loader
+
+    paths = getattr(dataset, "image_paths", None)
+    if (dataset.transform.mapx is not None or not paths or not os.path.isfile(paths[0])
+            or native_loader.missing_toolchain() is not None):
+        return None
+    return native_loader.NativePrefetcher(paths, dataset.transform, ring_size=ring_size,
+                                          n_threads=n_threads)
+
+
+def stream_slam_images(dataset, use_native_loader: bool = True):
+    """The host SLAM images ``System.run(use_native_loader=...)`` will
+    track, in order: the native loader's where it applies, else
+    ``to_slam``'s.  The oracle registers frames by these bytes."""
+    native = make_native_prefetcher(dataset) if use_native_loader else None
+    if native is None:
+        for i in range(len(dataset)):
+            yield dataset.transform.to_slam(dataset[i][0])
+        return
+    try:
+        for _ in range(len(dataset)):
+            yield native.get()[0]
+    finally:
+        native.close()
+
+
 class System:
     """Single-host pipeline: track -> backend -> map, per frame, on
     ``device`` (default: the CUDA device).
@@ -453,7 +524,7 @@ class System:
         float32_policy()
         if int(getattr(args, "n_devices", 1) or 1) > 1:
             raise NotImplementedError("--n_devices > 1: the multi-device mesh is not ported")
-        self._maybe_auto_calibrate(args, dataset, runner)
+        self.auto_calib = self._maybe_auto_calibrate(args, dataset, runner)
         self.keyframes = KeyframeStore(dataset.H_slam, dataset.W_slam, K_slam=dataset.K_slam,
                                        device=self.device)
         self.frontend = Frontend(args, config, dataset, self.keyframes, runner,
@@ -480,6 +551,7 @@ class System:
         self.start_time = None
         self.n_frames = 0
         self.frame_s: list = []     # host seconds per frame of the stream loop
+        self.loader = None          # the frame source of the last run: "native" or "python"
 
     @property
     def scene_model(self) -> SceneModel:
@@ -492,29 +564,38 @@ class System:
     @staticmethod
     def _maybe_auto_calibrate(args, dataset, runner):
         """Focal estimate from the first frame's mono pointmap when the
-        dataset's intrinsics are a guess (advisory: a failure keeps the
-        guess)."""
+        dataset's intrinsics are a guess (``calib_is_guess``).  Returns
+        what it did, or None when it did not run: the focal guessed and
+        the one estimated (original-image pixels) and the K_slam kept.  A
+        degenerate estimate keeps the guess with a warning, as in the JAX
+        package; any other failure raises."""
         if not getattr(dataset, "calib_is_guess", False):
-            return
+            return None
         if not getattr(args, "auto_calib", True) or not hasattr(runner, "inference_mono"):
-            return
+            return None
         from artdeco_tpu_torch.geometry.calibration import estimate_focal_weiszfeld
 
-        try:
-            img, _ = dataset[0]
-            img_slam = torch.as_tensor(dataset.transform.to_slam(img), device=runner.device)
-            X, C, _, _ = runner.inference_mono(img_slam)
-            conf = C[0][:, 0].cpu().numpy()
-            valid = torch.as_tensor(conf >= np.quantile(conf, 0.3), device=X.device)
-            f_slam = float(estimate_focal_weiszfeld(X[0], valid, dataset.H_slam,
-                                                    dataset.W_slam))
-            if not np.isfinite(f_slam) or f_slam <= 1.0:
-                raise ValueError(f"degenerate focal estimate {f_slam}")
-            dataset.recalibrate_focal(f_slam * dataset.transform.scale_slam_w)
-        except Exception as e:
+        out = {"guess": float(dataset.transform.K_best[0, 0])}
+        img, _ = dataset[0]
+        img_slam = torch.as_tensor(dataset.transform.to_slam(img), device=runner.device)
+        X, C, _, _ = runner.inference_mono(img_slam)
+        conf = C[0][:, 0].cpu().numpy()
+        # keep the most confident 70 % (>= so a constant confidence keeps all)
+        valid = torch.as_tensor(conf >= np.quantile(conf, 0.3), device=X.device)
+        f_slam = float(estimate_focal_weiszfeld(X[0], valid, dataset.H_slam, dataset.W_slam))
+        # scale_slam_w is original / SLAM pixels
+        out["estimate"] = f_slam * dataset.transform.scale_slam_w
+        if np.isfinite(f_slam) and f_slam > 1.0:
+            dataset.recalibrate_focal(out["estimate"])
+            out["applied"] = True
+        else:
             import warnings
 
-            warnings.warn(f"auto-calibration failed, keeping guess: {e}")
+            out["applied"] = False
+            out["error"] = f"degenerate focal estimate {f_slam}"
+            warnings.warn(f"auto-calibration failed, keeping guess: {out['error']}")
+        out["K_slam"] = np.asarray(dataset.K_slam).copy()
+        return out
 
     # -- mapper messages ----------------------------------------------------
     def _handle_mapper_msg(self, m: dict, img_map=None):
@@ -522,17 +603,25 @@ class System:
 
     # -- main loop ----------------------------------------------------------
     def run(self, max_frames: Optional[int] = None, progress: bool = True,
-            overlap: Optional[bool] = None):
+            use_native_loader: bool = True, overlap: Optional[bool] = None):
         """Stream the dataset through track -> backend -> map.
 
-        ``overlap`` (default: args.async_pipeline, else True) runs the
-        mapper-facing half on a worker thread; the trajectory is the same
-        either way, only the wall clock differs."""
+        ``use_native_loader``: frames come from the native C++ loader where
+        it applies (``make_native_prefetcher``), else from the Python path;
+        ``self.loader`` says which ran.  ``overlap`` (default:
+        args.async_pipeline, else True) runs the mapper-facing half on a
+        worker thread; the trajectory is the same either way, only the wall
+        clock differs."""
         if overlap is None:
             overlap = bool(getattr(self.args, "async_pipeline", True))
         self.start_time = time.time()
-        it = _UploadAhead(_Prefetcher(self.dataset), self.dataset.transform, self.device,
-                          runner=self.frontend.runner)
+        native = make_native_prefetcher(self.dataset) if use_native_loader else None
+        self.loader = "python" if native is None else "native"
+        if native is not None:
+            it = self._native_frames(native)
+        else:
+            it = _Prefetcher(self.dataset)
+        it = _UploadAhead(it, self.dataset.transform, self.device, runner=self.frontend.runner)
         bar = None
         if progress:
             try:
@@ -560,11 +649,25 @@ class System:
             it.close()
             if worker is not None:
                 worker.close()
+            if native is not None:
+                it.t.join()     # the upload thread stops reading the loader first
+                native.close()
             if prof is not None:
                 prof.stop()
         if bar is not None:
             bar.close()
         return self
+
+    def _native_frames(self, native):
+        """(("native", slam), info) per frame from the native loader; each
+        frame's map image goes to the mapper's ``map_cache``."""
+        for i in range(len(self.dataset)):
+            slam, mp = native.get()
+            info = dict(self.dataset.infos[self.dataset.image_name_list[i]])
+            if self.dataset.Twc_gt is not None:
+                info["Twc_gt"] = self.dataset.Twc_gt[i]
+            self.mapper.map_cache.put(i, mp)
+            yield ("native", slam), info
 
     def _stream_loop(self, it, bar, max_frames, annotate, worker=None):
         for original_image, info in it:
@@ -579,7 +682,9 @@ class System:
                 self.runtimes.add("backend", time.time() - t0)
                 if work is not None:
                     if worker is not None:
-                        worker.submit(work)
+                        # the native loader's map image of the current frame;
+                        # taken now, before the cache window moves past it
+                        worker.submit(work, self.mapper.map_cache.pop(msg["frame_id"]))
                     else:
                         t0 = time.time()
                         with annotate("mapper.step"):

@@ -8,47 +8,20 @@ common frame) and rank the candidates by their valid-match fraction.
 
 The JAX package resizes each keyframe image on the host with
 ``cv2.resize(..., INTER_AREA)``.  Here the images stay on the device and
-``area_resize`` applies OpenCV's rule as two per-axis weight matrices: when
-the image grows along an axis, INTER_AREA is OpenCV's linear rule with the
-fraction ``(d + 1) - (s + 1) / scale`` (``s = floor(d * scale)``); when it
-shrinks along both, each output pixel averages the source pixels its
-footprint covers, weighted by overlap.
+``area_resize`` applies OpenCV's rule as two per-axis weight matrices
+(``dataio/resample.area_matrix``): when the image grows along an axis,
+INTER_AREA is OpenCV's linear rule; when it shrinks along both, OpenCV's
+area tables.
 """
 
 from __future__ import annotations
 
-import math
 from typing import Callable
 
-import numpy as np
 import torch
 
+from artdeco_tpu_torch.dataio.resample import area_matrix
 from artdeco_tpu_torch.ops.matching import match_pi3
-
-
-def _area_matrix(n_in: int, n_out: int, shrink: bool) -> np.ndarray:
-    """(n_out, n_in) float32 weights of ``cv2.resize(INTER_AREA)`` along one
-    axis; ``shrink`` when the image shrinks along both axes (OpenCV's area
-    averaging), else its linear rule."""
-    w = np.zeros((n_out, n_in), np.float64)
-    scale = n_in / n_out
-    if shrink:
-        for d in range(n_out):
-            lo, hi = d * scale, (d + 1) * scale
-            for s in range(int(math.floor(lo)), min(int(math.ceil(hi)), n_in)):
-                w[d, s] = (min(hi, s + 1) - max(lo, s)) / scale
-        return w.astype(np.float32)
-    inv = n_out / n_in
-    for d in range(n_out):
-        s = int(math.floor(d * scale))
-        f = np.float32((d + 1) - (s + 1) * inv)
-        f = np.float32(0.0) if f <= 0 else f - np.float32(math.floor(f))
-        if s >= n_in - 1:
-            s, f = n_in - 1, np.float32(0.0)
-        w[d, s] += np.float32(1.0) - f
-        if f:
-            w[d, s + 1] += f
-    return w.astype(np.float32)
 
 
 def area_resize(img: torch.Tensor, hw) -> torch.Tensor:
@@ -57,8 +30,8 @@ def area_resize(img: torch.Tensor, hw) -> torch.Tensor:
     _, H, W = img.shape
     h, w = hw
     shrink = h <= H and w <= W
-    wy = torch.as_tensor(_area_matrix(H, h, shrink), device=img.device)
-    wx = torch.as_tensor(_area_matrix(W, w, shrink), device=img.device)
+    wy = torch.as_tensor(area_matrix(H, h, shrink), device=img.device)
+    wx = torch.as_tensor(area_matrix(W, w, shrink), device=img.device)
     return torch.einsum("yh,chw,xw->cyx", wy, img, wx)
 
 

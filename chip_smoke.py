@@ -8,8 +8,9 @@ mapper (``MapperStage``) over a 16-frame 512x384 synthetic plane stream at
 the ``MapperConfig`` defaults, the tracking frontend (``Frontend`` +
 ``OracleRunner``) over a 120-frame 512x384 stream with
 ``config/base.yaml`` as it is, the full ``System`` on the oracle stream,
-and the model-driven ``System`` (full-width MASt3R and Pi3) through
-``run_system.main``.
+the model-driven ``System`` (full-width MASt3R and Pi3) through
+``run_system.main``, and streams read from image files (an image folder
+and a TUM sequence) through the entry point.
 
 1. device: a CUDA device is required; prints ``nvidia-smi``'s name and
    power limit; builds the CUDA kernels from ``artdeco_tpu_torch/csrc``
@@ -85,6 +86,25 @@ and the model-driven ``System`` (full-width MASt3R and Pi3) through
    geometry: matches are invalid and frames are lost, so (c) times the
    model path's cost (lost frames run relocalization with Pi3), not its
    tracking.
+11. streams from disk, as users run the system on their own frames: (a)
+   phase 8's 240 frames written as PNGs with a TUM-format
+   ``groundtruth.txt`` and a calibration YAML, read by
+   ``SelfCapturedDataset`` and run by ``System.run`` through the Python
+   loader (PNG decode, ``to_slam``) with phase 8's arguments: keyframes,
+   lost frames, every pose and the test PSNR must be bitwise phase 8's;
+   (b) the same folder (its first 120 frames) through ``run_system.main``
+   with ``--calib`` and ``--oracle``, the loader the entry point chooses:
+   0 lost, phase 8's keyframes, ATE < 0.03 m, ``save``'s files; (c) a TUM
+   sequence at 640x480 (``rgb.txt``, ``groundtruth.txt``) through
+   ``run_system.main -d tum --downsampling 2 --oracle``: SLAM 512x384 by
+   INTER_AREA, map 320x240, 0 lost, at least 2 keyframes, ATE < 0.03 m;
+   (d) ``run_system.main`` with ``--model_size full`` on 8 frames of (a)'s
+   folder without ``--calib`` or ``--oracle``: the focal guess, the
+   estimate from the first frame's pointmap (random weights: a degenerate
+   estimate is reported, not failed) and the K_slam used.  (a)-(c) check
+   their K1/K2/K3 launches as phase 8 does; (a) and (b) print the idle
+   share of frames 66-73.  ``NATIVE_PHASES`` records whether the card's
+   machine can build the native loader (it cannot: no codec headers).
 
 Prints one line per phase, then a JSON line of the kernels and, last,
 ``{"ok": true, "device": {...}}``.  Any failed check raises: the exit code
@@ -125,6 +145,15 @@ MODEL_EDGES = 4              # edges of the timed symmetric match (8 decoded pai
 MODEL_TIMED = 5
 PI3_FRAMES = 24              # the accurate matcher's window (23 candidates and the query)
 SYS10_FRAMES = 32            # depth of the model-driven System run
+DISK_ENTRY_FRAMES = 120      # phase 11b: the entry point on the first frames of 11a's folder
+TUM_W, TUM_H, TUM_SLAM, TUM_FRAMES, TUM_TEST_HOLD = 640, 480, 512, 120, 30   # phase 11c
+CALIB_FRAMES = 8             # phase 11d
+# The card's machine has no libjpeg/libpng headers: g++ there reads
+# "fatal error: jpeglib.h: No such file or directory" (PR 7), so the native
+# loader cannot be built on it.  By this fixed decision phase 11 runs the
+# Python loader there and leaves out the native halves of (b) and (c);
+# (b) and (c) then check that the entry point chose the Python loader.
+NATIVE_PHASES = False
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense; at a 700 W
 # limit): float32 outside the tensor cores, bf16 on the tensor cores (f32
@@ -372,7 +401,6 @@ def profile_window(fn, n_steps: int, what: str, ranges=()) -> str:
     busy time.  The profiler adds host time to every launch, so the window
     is longer than the same work unprofiled."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -385,15 +413,22 @@ def profile_window(fn, n_steps: int, what: str, ranges=()) -> str:
     return summarize_profile(prof, window_ms, n_steps, what, ranges)
 
 
+def device_events(prof, ranges=()) -> list:
+    """The profile's device kernels, memcpys and memsets (key averages);
+    a ``record_function`` range's span on the device timeline is not one."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.key not in ranges]
+
+
 def summarize_profile(prof, window_ms: float, n_steps: int, what: str, ranges=()) -> str:
     """profile_window's summary of a finished profiler run over
     ``window_ms`` of host time."""
     import torch
     from torch.autograd import DeviceType
 
-    # a range's span on the device timeline is not a kernel
-    dev = [e for e in prof.key_averages()
-           if e.device_type == DeviceType.CUDA and e.key not in ranges]
+    dev = device_events(prof, ranges)
     busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
     in_ranges = []
     for name in ranges:
@@ -493,17 +528,51 @@ def timers_ms(timers: dict, prefix: str) -> str:
                      if k.startswith(prefix)) or "none"
 
 
+def reset_launches():
+    from artdeco_tpu_torch.ops import refine_dense as RD
+    from artdeco_tpu_torch.ops.splat import composite as C
+
+    C.composite_fwd.launches = C.composite_bwd.launches = RD.window_argmax.launches = 0
+
+
+def read_launches() -> dict:
+    from artdeco_tpu_torch.ops import refine_dense as RD
+    from artdeco_tpu_torch.ops.splat import composite as C
+
+    return {"fwd": C.composite_fwd.launches, "bwd": C.composite_bwd.launches,
+            "k3": RD.window_argmax.launches}
+
+
+def check_system_launches(sys_, launches: dict, what: str) -> str:
+    """A System run's K1/K2/K3 launches against the calls that launch them:
+    K1 = training steps + renders, K2 = steps, K3 = tracked matches + the
+    backend's symmetric-match rows + its pair matches.  Returns the line
+    that says so."""
+    fe, bk, fg, sm = sys_.frontend, sys_.backend, sys_.backend.factor_graph, sys_.scene_model
+    tracked = fe.tracker.timers["trk.match"][1]
+    k3_want = tracked + fg.match_rows + bk.pair_matches
+    check(launches["k3"] == k3_want, f"{what}: K3 launches {launches['k3']} != {tracked} "
+          f"tracked + {fg.match_rows} symmetric rows + {bk.pair_matches} pair matches")
+    check(launches["bwd"] == sm.n_train_steps > 0,
+          f"{what}: K2 launches {launches['bwd']} != {sm.n_train_steps} training steps")
+    check(launches["fwd"] == sm.n_train_steps + sm.n_renders,
+          f"{what}: K1 launches {launches['fwd']} != {sm.n_train_steps} steps + "
+          f"{sm.n_renders} renders")
+    return (f"launches K1 {launches['fwd']} (= {sm.n_train_steps} steps + {sm.n_renders} "
+            f"renders) K2 {launches['bwd']} K3 {launches['k3']} (= {tracked} tracked + "
+            f"{fg.match_rows} symmetric rows + {bk.pair_matches} pair matches)")
+
+
 def full_system_phase(dev, cfg):
     """Phase 8: the full System, overlapped, then sequentially (see the
     module docstring).  Returns the kernels' launch counts of the
-    overlapped run."""
+    overlapped run and what phase 11a holds its run from disk to: the
+    stream, its keyframes, every frame's pose, the test PSNR, ms per frame
+    and FPS."""
     import tempfile
 
     import torch
     from artdeco_tpu_torch.dataio.dataset import SyntheticDataset
-    from artdeco_tpu_torch.eval.trajectory import evaluate_trajectory
-    from artdeco_tpu_torch.ops import refine_dense as RD
-    from artdeco_tpu_torch.ops.splat import composite as C
     from artdeco_tpu_torch.runtime.system import _Prefetcher, _UploadAhead
 
     args = system_args(max_size_slam=SYS_W)
@@ -513,7 +582,7 @@ def full_system_phase(dev, cfg):
     sys_, reg_s = make_system(dev, ds, cfg, args)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    C.composite_fwd.launches = C.composite_bwd.launches = RD.window_argmax.launches = 0
+    reset_launches()
     t0 = time.time()
     sys_.run(progress=False)
     torch.cuda.synchronize()
@@ -521,8 +590,7 @@ def full_system_phase(dev, cfg):
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_")
     meta = sys_.save(out_dir)
     torch.cuda.synchronize()
-    launches = {"fwd": C.composite_fwd.launches, "bwd": C.composite_bwd.launches,
-                "k3": RD.window_argmax.launches}
+    launches = read_launches()
     peak_mib = torch.cuda.max_memory_allocated() / 2**20
 
     fe, bk, fg, sm = sys_.frontend, sys_.backend, sys_.backend.factor_graph, sys_.scene_model
@@ -536,14 +604,7 @@ def full_system_phase(dev, cfg):
     check(not missing, f"keyframes {missing} lost their consecutive edge")
     check(sys_.mapper.rigid_transforms == n_kf - 1,
           f"{sys_.mapper.rigid_transforms} rigid transforms for {n_kf} keyframes")
-    tracked = fe.tracker.timers["trk.match"][1]
-    k3_want = tracked + fg.match_rows + bk.pair_matches
-    check(launches["k3"] == k3_want, f"K3 launches {launches['k3']} != {tracked} tracked + "
-          f"{fg.match_rows} symmetric rows + {bk.pair_matches} pair matches")
-    check(launches["bwd"] == sm.n_train_steps > 0,
-          f"K2 launches {launches['bwd']} != {sm.n_train_steps} training steps")
-    check(launches["fwd"] == sm.n_train_steps + sm.n_renders,
-          f"K1 launches {launches['fwd']} != {sm.n_train_steps} steps + {sm.n_renders} renders")
+    launch_line = check_system_launches(sys_, launches, "phase 8")
     ate = meta["trajectory"]["APE"]["rmse"]
     psnr = meta["metrics"].get("PSNR", float("nan"))
     check(ate < 0.03, f"ATE RMSE {ate} m")
@@ -560,10 +621,7 @@ def full_system_phase(dev, cfg):
           f"registered in {reg_s:.1f} s); lost {fe.lost_number}; keyframes {n_kf} at frames "
           f"{kf_frames}; GN solves {len(fg.solves)} at (P, E, edges) {fg.solves}; kept pairs "
           f"{sorted(pairs)}; rigid transforms {sys_.mapper.rigid_transforms}; mapper frames "
-          f"{sys_.mapper_index}; launches K1 {launches['fwd']} (= {sm.n_train_steps} steps + "
-          f"{sm.n_renders} renders) K2 {launches['bwd']} K3 {launches['k3']} (= {tracked} "
-          f"tracked + {fg.match_rows} symmetric rows + {bk.pair_matches} pair matches); ATE "
-          f"RMSE {ate:.5f} m; frame lookups that pulled an image {lookups}; test PSNR "
+          f"{sys_.mapper_index}; {launch_line}; ATE RMSE {ate:.5f} m; frame lookups that pulled an image {lookups}; test PSNR "
           f"{psnr:.2f} dB SSIM {meta['metrics']['SSIM']:.4f}; "
           f"Gaussians {meta['n_gaussians']}", flush=True)
     print(f"phase 8 timing: {statistics.median(frame_ms):.2f} ms per frame (median; mean "
@@ -573,6 +631,8 @@ def full_system_phase(dev, cfg):
           f"message), map {rt.get('map', 0):.2f} (per work item, worker thread); peak memory "
           f"{peak_mib:.1f} MiB", flush=True)
     kf_T = sys_.keyframes.T_WC[:n_kf].copy()
+    ref = dict(ds=ds, kf_frames=kf_frames, est=fe.estimated_trajectory(), psnr=psnr,
+               lost=fe.lost_number, ms=statistics.median(frame_ms), fps=SYS_FRAMES / run_s)
     del sys_, fe, bk, fg, sm
     gc.collect()
     torch.cuda.empty_cache()
@@ -628,7 +688,7 @@ def full_system_phase(dev, cfg):
           f"{seq.backend.factor_graph.solves}", flush=True)
     print(f"phase 8 profile: {summarize_profile(window['prof'], window['ms'], SYS_PROFILED[1] - SYS_PROFILED[0], 'frames', ('gn.solve',))}",
           flush=True)
-    return launches
+    return launches, ref
 
 
 
@@ -907,41 +967,23 @@ def model_system_phase(dev) -> tuple:
     import tempfile
 
     import torch
-    from artdeco_tpu_torch import run_system
     from artdeco_tpu_torch.dataio import dataset as D
-    from artdeco_tpu_torch.ops import refine_dense as RD
-    from artdeco_tpu_torch.ops.splat import composite as C
-    from artdeco_tpu_torch.runtime import system as S
-
-    seen = {}
-    load, save = D.load_dataset, S.System.save
 
     def stream(args):
         return D.SyntheticDataset(args, n_frames=SYS10_FRAMES, width=MODEL_W, height=MODEL_H)
-
-    def keep(self, out_dir):
-        seen["system"] = self
-        return save(self, out_dir)
 
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_model_")
     argv = ["-s", "synthetic://", "-d", "synthetic", "--model_size", MODEL_SIZE,
             "--accurate_loop_closure", "--test_hold", str(TEST_HOLD), "--max_size_slam",
             str(MODEL_W), "--checkpoint_path", "", "--retrieval_checkpoint_path", "",
             "--pi3_checkpoint_path", "", "-m", out_dir]
-    D.load_dataset, S.System.save = stream, keep
-    torch.cuda.synchronize()
+    load = D.load_dataset
+    D.load_dataset = stream
     torch.cuda.reset_peak_memory_stats()
-    C.composite_fwd.launches = C.composite_bwd.launches = RD.window_argmax.launches = 0
-    t0 = time.time()
     try:
-        meta = run_system.main(argv)
+        meta, sys_, run_s, launches = run_entry(argv)
     finally:
-        D.load_dataset, S.System.save = load, save
-    torch.cuda.synchronize()
-    run_s = time.time() - t0
-    launches = {"fwd": C.composite_fwd.launches, "bwd": C.composite_bwd.launches,
-                "k3": RD.window_argmax.launches}
-    sys_ = seen["system"]
+        D.load_dataset = load
     check(not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32,
           "the entry point left TF32 on")
     for k in ("fwd", "bwd", "k3"):
@@ -979,10 +1021,325 @@ def model_system_phase(dev) -> tuple:
         + f"; Gaussians "
         f"{meta['n_gaussians']}; peak memory {torch.cuda.max_memory_allocated() / 2**20:.1f} "
         f"MiB")
-    del sys_, seen
+    del sys_
     gc.collect()
     torch.cuda.empty_cache()
     return summary, launches
+
+
+def write_stream(ds, root: str, tum: bool = False) -> str:
+    """``ds``'s frames as PNG files (the port's ``write_png``) with a
+    TUM-format ``groundtruth.txt`` of its poses: ``root/images/<name>`` for
+    an image folder, or ``root/rgb/<timestamp>.png`` listed in ``rgb.txt``
+    (30 Hz) for a TUM sequence.  Returns the path of a calibration YAML
+    with ``ds``'s intrinsics [0.8 W, 0.8 W, W / 2, H / 2]."""
+    import yaml
+    from artdeco_tpu_torch.dataio.tum_io import save_tum_trajectory
+    from artdeco_tpu_torch.mapper.scene_io import write_png
+
+    ts = np.asarray(ds.timestamp, np.float64)
+    if tum:
+        ts = 1305031102.175304 + np.arange(len(ds)) / 30.0
+        os.makedirs(os.path.join(root, "rgb"), exist_ok=True)
+        with open(os.path.join(root, "rgb.txt"), "w") as f:
+            for i in range(len(ds)):
+                rel = f"rgb/{ts[i]:.6f}.png"
+                write_png(os.path.join(root, rel), ds[i][0])
+                f.write(f"{ts[i]:.6f} {rel}\n")
+    else:
+        os.makedirs(os.path.join(root, "images"), exist_ok=True)
+        for i in range(len(ds)):
+            write_png(os.path.join(root, "images", ds.image_name_list[i]), ds[i][0])
+    save_tum_trajectory(os.path.join(root, "groundtruth.txt"), ts, ds.Twc_gt)
+    path = os.path.join(root, "calib.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump({"width": ds.W, "height": ds.H,
+                        "calibration": [0.8 * ds.W, 0.8 * ds.W, ds.W / 2, ds.H / 2]}, f)
+    return path
+
+
+class ProfiledFrames:
+    """Within the block, every ``System`` run profiles its frames
+    [first, last) (torch.profiler, CPU and CUDA); ``summary`` and ``idle``
+    read the last window."""
+
+    def __init__(self, first: int, last: int):
+        self.first, self.last = first, last
+        self.prof = self.ms = None
+
+    def __enter__(self):
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+        from artdeco_tpu_torch.runtime import system as S
+
+        self.orig = orig = S.System._stream_loop
+        win = self
+
+        def loop(sys_, it, *a, **k):
+            def frames():
+                for i, item in enumerate(it):
+                    if i == win.first:
+                        torch.cuda.synchronize()
+                        win.prof = profile(activities=[ProfilerActivity.CPU,
+                                                       ProfilerActivity.CUDA])
+                        win.prof.start()
+                        win.t0 = time.perf_counter()
+                    if i == win.last:
+                        win.stop()
+                    yield item
+
+            try:
+                return orig(sys_, frames(), *a, **k)
+            finally:
+                win.stop()
+
+        S.System._stream_loop = loop
+        return self
+
+    def stop(self):
+        import torch
+
+        if self.prof is not None and self.ms is None:
+            torch.cuda.synchronize()
+            self.ms = 1e3 * (time.perf_counter() - self.t0)
+            self.prof.stop()
+
+    def __exit__(self, *exc):
+        from artdeco_tpu_torch.runtime import system as S
+
+        S.System._stream_loop = self.orig
+
+    def idle(self) -> float:
+        busy = sum(e.self_device_time_total for e in device_events(self.prof)) / 1e3
+        return 1.0 - busy / self.ms
+
+    def summary(self) -> str:
+        return summarize_profile(self.prof, self.ms, self.last - self.first, "frames")
+
+
+def run_entry(argv) -> tuple:
+    """``run_system.main(argv)`` as users run it, the kernels' launch
+    counts set to 0 just before it and read just after.  Returns (its
+    metadata, the System it ran, its seconds, the launches)."""
+    import torch
+    from artdeco_tpu_torch import run_system
+    from artdeco_tpu_torch.runtime import system as S
+
+    seen = {}
+    save = S.System.save
+
+    def keep(self, out_dir):
+        seen["system"] = self
+        return save(self, out_dir)
+
+    S.System.save = keep
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.time()
+    try:
+        meta = run_system.main(argv)
+    finally:
+        S.System.save = save
+    torch.cuda.synchronize()
+    return meta, seen["system"], time.time() - t0, read_launches()
+
+
+def host_decode_line(ds, n: int = 8) -> str:
+    """Host ms per frame of decoding ``ds``'s first ``n`` frames and of
+    their ``to_slam`` and ``to_map``, as the Python loader runs them."""
+    t0 = time.perf_counter()
+    imgs = [ds[i][0] for i in range(n)]
+    t1 = time.perf_counter()
+    for img in imgs:
+        ds.transform.to_slam(img)
+    t2 = time.perf_counter()
+    for img in imgs:
+        ds.transform.to_map(img)
+    t3 = time.perf_counter()
+    return (f"host ms per frame over {n}: decode {1e3 * (t1 - t0) / n:.2f}, to_slam "
+            f"{1e3 * (t2 - t1) / n:.2f}, to_map {1e3 * (t3 - t2) / n:.2f}")
+
+
+def frame_ms_line(sys_, n: int, run_s: float) -> str:
+    ms = [1e3 * x for x in sys_.frame_s]
+    return (f"{statistics.median(ms):.2f} ms per frame (median; mean {statistics.mean(ms):.2f}),"
+            f" {n / run_s:.2f} FPS over the run ({run_s:.1f} s)")
+
+
+def disk_stream_phase(dev, cfg, ref) -> tuple:
+    """Phase 11: streams from disk (see the module docstring).  ``ref`` is
+    phase 8's in-memory run.  Returns the kernels' launch counts by part."""
+    import tempfile
+    import warnings
+
+    import torch
+    from artdeco_tpu_torch.dataio.dataset import SelfCapturedDataset, SyntheticDataset
+    from artdeco_tpu_torch.runtime import native_loader
+
+    want_loader = "native" if NATIVE_PHASES else "python"
+    why = native_loader.missing_toolchain()
+    print(f"phase 11 loader: the native loader "
+          + ("can be built here" if why is None else f"cannot be built here ({why})")
+          + f"; native phases {'on' if NATIVE_PHASES else 'off'} by this script's fixed "
+          f"decision (NATIVE_PHASES)", flush=True)
+    launches = {}
+
+    # (a) phase 8's stream from PNG files, the Python loader, bit for bit
+    root = tempfile.mkdtemp(prefix="chip_smoke_disk_")
+    t0 = time.time()
+    calib = write_stream(ref["ds"], root)
+    write_s = time.time() - t0
+    args = system_args(max_size_slam=SYS_W, dataset_name="selfCaptured", source_path=root,
+                       calib=calib)
+    ds = SelfCapturedDataset(args)
+    check(len(ds) == SYS_FRAMES and np.array_equal(ds.K_slam, ref["ds"].K_slam)
+          and (ds.W_slam, ds.H_slam, ds.W_map, ds.H_map) == (SYS_W, SYS_H, SYS_W, SYS_H),
+          "phase 11a: the folder's dataset is not phase 8's stream")
+    decode_a = host_decode_line(ds)
+    sys_, reg_s = make_system(dev, ds, cfg, args)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.time()
+    with ProfiledFrames(*SYS_PROFILED) as win_a:
+        sys_.run(progress=False, use_native_loader=False)
+    torch.cuda.synchronize()
+    run_s = time.time() - t0
+    meta = sys_.save(tempfile.mkdtemp(prefix="chip_smoke_disk_out_"))
+    launches["phase 11a"] = read_launches()
+    line = check_system_launches(sys_, launches["phase 11a"], "phase 11a")
+    n_kf = len(sys_.keyframes)
+    kf = sys_.keyframes.dataset_idx[:n_kf].tolist()
+    est = sys_.frontend.estimated_trajectory()
+    psnr = meta["metrics"].get("PSNR", float("nan"))
+    check(sys_.loader == "python", f"phase 11a ran the {sys_.loader} loader")
+    if est.shape != ref["est"].shape or not np.array_equal(est, ref["est"]):
+        rows = (np.nonzero(np.any(est != ref["est"], axis=1))[0]
+                if est.shape == ref["est"].shape else [0])
+        check(False, f"phase 11a: poses differ from phase 8's from frame {int(rows[0])} "
+              f"({est.shape} against {ref['est'].shape})")
+    check(kf == ref["kf_frames"], f"phase 11a: keyframes {kf} != phase 8's {ref['kf_frames']}")
+    check(sys_.frontend.lost_number == ref["lost"] == 0,
+          f"phase 11a: {sys_.frontend.lost_number} lost")
+    check(psnr == ref["psnr"], f"phase 11a: test PSNR {psnr!r} != phase 8's {ref['psnr']!r}")
+    print(f"phase 11a folder, Python loader: {SYS_FRAMES} PNG frames {SYS_W}x{SYS_H} written in "
+          f"{write_s:.1f} s, oracle registered in {reg_s:.1f} s; keyframes {kf}, lost "
+          f"{sys_.frontend.lost_number}, every pose and the test PSNR {psnr!r} dB bitwise "
+          f"phase 8's; {line}; {frame_ms_line(sys_, SYS_FRAMES, run_s)} (phase 8 "
+          f"{ref['ms']:.2f} ms, {ref['fps']:.2f} FPS); idle share {win_a.idle():.3f} over "
+          f"frames {SYS_PROFILED[0]}-{SYS_PROFILED[1] - 1} (profiled); {decode_a}", flush=True)
+    idle_a = win_a.idle()
+    del sys_
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) the same folder through the entry point, default loader
+    out_b = tempfile.mkdtemp(prefix="chip_smoke_entry_")
+    argv = ["-s", root, "--calib", calib, "--oracle", "--test_hold", str(TEST_HOLD),
+            "--max_size_slam", str(SYS_W), "--retrieval_checkpoint_path", "",
+            "--seq_length", str(DISK_ENTRY_FRAMES), "-m", out_b]
+    with ProfiledFrames(*SYS_PROFILED) as win_b:
+        meta, sys_, run_s, launches["phase 11b"] = run_entry(argv)
+    line = check_system_launches(sys_, launches["phase 11b"], "phase 11b")
+    check(sys_.loader == want_loader, f"phase 11b ran the {sys_.loader} loader, "
+          f"not the {want_loader} one")
+    n_kf = len(sys_.keyframes)
+    kf = sys_.keyframes.dataset_idx[:n_kf].tolist()
+    want_kf = [k for k in ref["kf_frames"] if k < DISK_ENTRY_FRAMES]
+    ate = meta["trajectory"]["APE"]["rmse"]
+    check(sys_.frontend.lost_number == 0, f"phase 11b: {sys_.frontend.lost_number} lost")
+    check(kf == want_kf, f"phase 11b: keyframes {kf} != phase 8's {want_kf}")
+    check(ate < 0.03, f"phase 11b: ATE RMSE {ate} m")
+    for rel in ("run_metadata.json", "metadata.json", "slam/frames.txt", "slam/keyframes.txt",
+                "point_clouds/gs.ply", "colmap/images.bin", "onthefly.txt"):
+        check(os.path.isfile(os.path.join(out_b, rel)), f"phase 11b: save wrote no {rel}")
+    diff = ""
+    if NATIVE_PHASES:
+        pf = native_loader.NativePrefetcher(sys_.dataset.image_paths, sys_.dataset.transform)
+        err = max(float(np.abs(pf.get()[0] - sys_.dataset.transform.to_slam(
+            sys_.dataset[i][0])).max()) for i in range(8))
+        pf.close()
+        diff = f"; native SLAM tensors within {err:.3g} of to_slam's (8 frames)"
+    print(f"phase 11b entry point run_system.main {' '.join(argv[:-2])}: loader "
+          f"{sys_.loader}{diff}; {DISK_ENTRY_FRAMES} frames, keyframes {kf}, lost "
+          f"{sys_.frontend.lost_number}, ATE RMSE {ate:.5f} m, test PSNR "
+          f"{meta['metrics'].get('PSNR', float('nan')):.2f} dB; {line}; "
+          f"{frame_ms_line(sys_, DISK_ENTRY_FRAMES, run_s)} (model set-up and save included "
+          f"in the seconds); idle share {win_b.idle():.3f} (11a {idle_a:.3f}) over frames "
+          f"{SYS_PROFILED[0]}-{SYS_PROFILED[1] - 1}", flush=True)
+    del sys_
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) a TUM sequence at 640x480: SLAM 512x384 by INTER_AREA, map 320x240
+    tum_ds = SyntheticDataset(types.SimpleNamespace(test_hold=-1, max_size_slam=TUM_W),
+                              n_frames=TUM_FRAMES, width=TUM_W, height=TUM_H)
+    tum_root = tempfile.mkdtemp(prefix="chip_smoke_tum_")
+    tum_calib = write_stream(tum_ds, tum_root, tum=True)
+    argv = ["-s", tum_root, "-d", "tum", "--calib", tum_calib, "--downsampling", "2",
+            "--max_size_slam", str(TUM_SLAM), "--oracle", "--test_hold", str(TUM_TEST_HOLD),
+            "--retrieval_checkpoint_path", "", "-m", tempfile.mkdtemp(prefix="chip_smoke_tum_")]
+    meta, sys_, run_s, launches["phase 11c"] = run_entry(argv)
+    line = check_system_launches(sys_, launches["phase 11c"], "phase 11c")
+    d = sys_.dataset
+    check((d.W_slam, d.H_slam, d.W_map, d.H_map)
+          == (TUM_SLAM, TUM_SLAM * 3 // 4, TUM_W // 2, TUM_H // 2),
+          f"phase 11c: SLAM {d.W_slam}x{d.H_slam}, map {d.W_map}x{d.H_map}")
+    check(sys_.loader == want_loader, f"phase 11c ran the {sys_.loader} loader")
+    n_kf = len(sys_.keyframes)
+    ate = meta["trajectory"]["APE"]["rmse"]
+    check(sys_.frontend.lost_number == 0, f"phase 11c: {sys_.frontend.lost_number} lost")
+    check(n_kf >= 2, f"phase 11c: {n_kf} keyframes")
+    check(ate < 0.03, f"phase 11c: ATE RMSE {ate} m")
+    dec = sys_.mapper.decode_s
+    loaders = ""
+    if NATIVE_PHASES:
+        pf = native_loader.NativePrefetcher(d.image_paths, d.transform)
+        ds_err, dm_err = [], []
+        for i in range(8):
+            slam, mp = pf.get()
+            img = d[i][0]
+            ds_err.append(np.abs(slam - d.transform.to_slam(img)))
+            dm_err.append(np.abs(mp - d.transform.to_map(img)))
+        pf.close()
+        loaders = (f"; native against Python loader over 8 frames: SLAM mean "
+                   f"{np.mean(ds_err):.3g} max {np.max(ds_err):.3g}, map mean "
+                   f"{np.mean(dm_err):.3g} max {np.max(dm_err):.3g}")
+    print(f"phase 11c TUM {TUM_W}x{TUM_H} -d tum --downsampling 2: loader {sys_.loader}"
+          f"{loaders}; {TUM_FRAMES} frames, keyframes "
+          f"{sys_.keyframes.dataset_idx[:n_kf].tolist()}, lost {sys_.frontend.lost_number}, "
+          f"ATE RMSE {ate:.5f} m, test PSNR {meta['metrics'].get('PSNR', float('nan')):.2f} "
+          f"dB; {line}; {frame_ms_line(sys_, TUM_FRAMES, run_s)}; the mapper decoded "
+          f"{dec[1]} frames again on the worker thread, {1e3 * dec[0] / max(dec[1], 1):.1f} ms "
+          f"each (decode + to_map); {host_decode_line(d)}", flush=True)
+    del sys_
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) auto-calibration on the model path: no --calib, no --oracle
+    argv = ["-s", root, "--model_size", MODEL_SIZE, "--test_hold", str(TEST_HOLD),
+            "--max_size_slam", str(SYS_W), "--seq_length", str(CALIB_FRAMES),
+            "--checkpoint_path", "",
+            "--retrieval_checkpoint_path", "", "-m", tempfile.mkdtemp(prefix="chip_smoke_cal_")]
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        meta, sys_, run_s, launches["phase 11d"] = run_entry(argv)
+    cal = sys_.auto_calib
+    check(cal is not None, "phase 11d: auto-calibration did not run")
+    check(cal["applied"] or cal.get("error", "").startswith("degenerate focal estimate"),
+          f"phase 11d: auto-calibration {cal}")
+    warned = [str(w.message) for w in caught if "auto-calibration" in str(w.message)]
+    print(f"phase 11d auto-calibration, run_system.main {' '.join(argv[:-2])}: guessed focal "
+          f"{cal['guess']:.2f} px, estimate {cal['estimate']:.4g} px ("
+          + ("applied" if cal["applied"] else f"not applied: {cal['error']}, reported")
+          + f"), K_slam used {np.round(cal['K_slam'], 3).tolist()}; warnings {warned}; "
+          f"{meta['n_frames']} frames in {run_s:.1f} s (model build included), loader "
+          f"{sys_.loader}, lost {sys_.frontend.lost_number} (random weights); launches K1 "
+          f"{launches['phase 11d']['fwd']} K2 {launches['phase 11d']['bwd']} K3 "
+          f"{launches['phase 11d']['k3']}", flush=True)
+    del sys_
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 
 def main() -> int:
@@ -1226,7 +1583,7 @@ def main() -> int:
           flush=True)
 
     # -- 8. the full system ------------------------------------------------
-    sys_launches = full_system_phase(dev, tcfg)
+    sys_launches, sys_ref = full_system_phase(dev, tcfg)
     for name in ("fwd", "bwd", "k3"):
         check(sys_launches[name] > 0, f"the full system launched no {name}")
 
@@ -1240,14 +1597,20 @@ def main() -> int:
     model_summary, model_launches = model_system_phase(dev)
     print(f"phase 10 system: {model_summary}", flush=True)
 
+    # -- 11. streams from disk ------------------------------------------------------
+    disk_launches = disk_stream_phase(dev, tcfg, sys_ref)
+
     # each path's own counts: the mapper stream (3), tracking (7), the oracle
-    # system (8), the model-driven system (10)
+    # system (8), the model-driven system (10), the streams from disk (11)
     by_phase = {"fwd": {"phase 3": launches["fwd"], "phase 8": sys_launches["fwd"],
                         "phase 10": model_launches["fwd"]},
                 "bwd": {"phase 3": launches["bwd"], "phase 8": sys_launches["bwd"],
                         "phase 10": model_launches["bwd"]},
                 "k3": {"phase 7": k3_launches, "phase 8": sys_launches["k3"],
                        "phase 10": model_launches["k3"]}}
+    for part, counts in disk_launches.items():
+        for k in ("fwd", "bwd", "k3"):
+            by_phase[k][part] = counts[k]
     src = "artdeco_tpu_torch/csrc/composite.cu"
     print(json.dumps({"kernels": [
         {"name": "composite_fwd", "route": "cuda", "source": src,

@@ -119,7 +119,7 @@ def test_mapper_slice_matches_jax():
                                atol=1e-3)
 
 
-PORT_MODULES = (   # the mapper's, tracking's, the backend's and the models' modules
+PORT_MODULES = (   # the mapper's, tracking's, the backend's, the models' and the data path's
     "mapper.scene_model", "runtime.system", "ops.splat.composite", "kernels",
     "geometry.lie", "geometry.projection", "geometry.robust", "geometry.uncertainty",
     "ops.matching", "ops.refine_dense", "models.oracle", "vslam.frame", "vslam.keyframes",
@@ -127,14 +127,16 @@ PORT_MODULES = (   # the mapper's, tracking's, the backend's and the models' mod
     "eval.trajectory", "vslam.retrieval", "vslam.global_opt", "vslam.backend",
     "mapper.scene_io", "geometry.calibration", "dataio.args", "run_system",
     "models.mast3r", "models.mast3r_infer", "models.pi3", "vslam.accurate_lc", "eval.lpips",
+    "dataio.camera", "dataio.resample", "dataio.image_io", "dataio.dataset",
+    "runtime.native_loader", "eval_scenes",
 )
 
 
 def test_port_imports_no_jax():
     """Every module of the port, chip_smoke.py, and everything chip_smoke's
     main() imports before it finds no CUDA device (it must then exit with
-    2) import neither JAX nor the JAX package: the port and its kernels run
-    on machines that have neither."""
+    2) import neither JAX nor the JAX package, nor OpenCV or PIL: the port
+    and its kernels run on machines that have none of them."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import artdeco_tpu_torch as p\n"
@@ -145,7 +147,7 @@ def test_port_imports_no_jax():
         f"missing = [m for m in {PORT_MODULES!r} if 'artdeco_tpu_torch.' + m not in sys.modules]\n"
         "assert not missing, missing\n"
         "bad = sorted(k for k in sys.modules\n"
-        "             if k.split('.')[0] in ('jax', 'jaxlib', 'flax', 'artdeco_tpu'))\n"
+        "             if k.split('.')[0] in ('jax', 'jaxlib', 'flax', 'artdeco_tpu', 'cv2', 'PIL'))\n"
         "assert not bad, bad\n"
         "print('ok', len([k for k in sys.modules if k.startswith('artdeco_tpu_torch')]))\n"
     )
@@ -154,4 +156,4 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.startswith("ok"), res.stdout
-    assert int(res.stdout.split()[1]) >= 35
+    assert int(res.stdout.split()[1]) >= 41
