@@ -151,21 +151,24 @@ class Runtimes:
         return {k: 1000.0 * v[0] / max(v[1], 1) for k, v in self.data.items()}
 
 
+# Map-resolution frames the native loader's cache keeps: mapper messages
+# refer to recent frames, and the upload thread runs a few frames ahead.
+MAP_CACHE_FRAMES = 8
+
+
 class MapCache:
-    """The native loader's map images by frame id, for the last ``size``
-    frames only: mapper messages refer to recent frames, and the upload
-    thread runs a few frames ahead.  The upload thread puts; the stream
+    """The native loader's map images by frame id, for the last
+    ``MAP_CACHE_FRAMES`` frames only.  The upload thread puts; the stream
     loop and the mapper take."""
 
-    def __init__(self, size: int = 8):
-        self.size = size
+    def __init__(self):
         self._items: dict = {}
         self._lock = threading.Lock()
 
     def put(self, frame_id: int, img) -> None:
         with self._lock:
             self._items[frame_id] = img
-            while len(self._items) > self.size:
+            while len(self._items) > MAP_CACHE_FRAMES:
                 del self._items[next(iter(self._items))]
 
     def pop(self, frame_id: int):
@@ -475,7 +478,7 @@ class _MapperWorker:
             raise err
 
 
-def make_native_prefetcher(dataset, ring_size: int = 8, n_threads: int = 4):
+def make_native_prefetcher(dataset):
     """The native C++ decode + resize pipeline where it applies, else None
     (the Python path then runs): the reference's rule (no undistortion
     remap, image paths on disk) and a machine that can build it
@@ -487,8 +490,7 @@ def make_native_prefetcher(dataset, ring_size: int = 8, n_threads: int = 4):
     if (dataset.transform.mapx is not None or not paths or not os.path.isfile(paths[0])
             or native_loader.missing_toolchain() is not None):
         return None
-    return native_loader.NativePrefetcher(paths, dataset.transform, ring_size=ring_size,
-                                          n_threads=n_threads)
+    return native_loader.NativePrefetcher(paths, dataset.transform)
 
 
 def stream_slam_images(dataset, use_native_loader: bool = True):

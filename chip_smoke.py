@@ -101,8 +101,10 @@ and a TUM sequence) through the entry point.
    (d) ``run_system.main`` with ``--model_size full`` on 8 frames of (a)'s
    folder without ``--calib`` or ``--oracle``: the focal guess, the
    estimate from the first frame's pointmap (random weights: a degenerate
-   estimate is reported, not failed) and the K_slam used.  (a)-(c) check
-   their K1/K2/K3 launches as phase 8 does; (a) and (b) print the idle
+   estimate is reported, not failed) and the K_slam used.  (a)-(d) check
+   their K1/K2/K3 launches as phase 8 does (on (d)'s model path too, lost
+   frames' relocalization matches through the backend's symmetric rows,
+   which the count includes); (a) and (b) print the idle
    share of frames 66-73.  ``NATIVE_PHASES`` records whether the card's
    machine can build the native loader (it cannot: no codec headers).
 
@@ -148,8 +150,8 @@ SYS10_FRAMES = 32            # depth of the model-driven System run
 DISK_ENTRY_FRAMES = 120      # phase 11b: the entry point on the first frames of 11a's folder
 TUM_W, TUM_H, TUM_SLAM, TUM_FRAMES, TUM_TEST_HOLD = 640, 480, 512, 120, 30   # phase 11c
 CALIB_FRAMES = 8             # phase 11d
-# The card's machine has no libjpeg/libpng headers: g++ there reads
-# "fatal error: jpeglib.h: No such file or directory" (PR 7), so the native
+# The H100 machine this script targets has no libjpeg: g++ there reads
+# "fatal error: jpeglib.h: No such file or directory", so the native
 # loader cannot be built on it.  By this fixed decision phase 11 runs the
 # Python loader there and leaves out the native halves of (b) and (c);
 # (b) and (c) then check that the entry point chose the Python loader.
@@ -389,6 +391,67 @@ def golden(p, timed: bool):
             bwd_kernels=kernel_split(lambda: C.composite_bwd(*args, g_out, stop)),
         )
     return res
+
+
+class ProfiledFrames:
+    """Within the block, every ``System._stream_loop`` (``System.run``'s,
+    or a direct call) profiles its frames [first, last) (torch.profiler,
+    CPU and CUDA, peak memory counted from its start); ``summary`` and
+    ``idle`` read the last window."""
+
+    def __init__(self, first: int, last: int):
+        self.first, self.last = first, last
+        self.prof = self.ms = None
+
+    def __enter__(self):
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+        from artdeco_tpu_torch.runtime import system as S
+
+        self.orig = orig = S.System._stream_loop
+        win = self
+
+        def loop(sys_, it, *a, **k):
+            def frames():
+                for i, item in enumerate(it):
+                    if i == win.first:
+                        torch.cuda.synchronize()
+                        torch.cuda.reset_peak_memory_stats()
+                        win.prof = profile(activities=[ProfilerActivity.CPU,
+                                                       ProfilerActivity.CUDA])
+                        win.prof.start()
+                        win.t0 = time.perf_counter()
+                    if i == win.last:
+                        win.stop()
+                    yield item
+
+            try:
+                return orig(sys_, frames(), *a, **k)
+            finally:
+                win.stop()
+
+        S.System._stream_loop = loop
+        return self
+
+    def stop(self):
+        import torch
+
+        if self.prof is not None and self.ms is None:
+            torch.cuda.synchronize()
+            self.ms = 1e3 * (time.perf_counter() - self.t0)
+            self.prof.stop()
+
+    def __exit__(self, *exc):
+        from artdeco_tpu_torch.runtime import system as S
+
+        S.System._stream_loop = self.orig
+
+    def idle(self) -> float:
+        busy = sum(e.self_device_time_total for e in device_events(self.prof)) / 1e3
+        return 1.0 - busy / self.ms
+
+    def summary(self, ranges=()) -> str:
+        return summarize_profile(self.prof, self.ms, self.last - self.first, "frames", ranges)
 
 
 def profile_window(fn, n_steps: int, what: str, ranges=()) -> str:
@@ -642,30 +705,13 @@ def full_system_phase(dev, cfg):
     seq, _ = make_system(dev, ds, cfg, system_args(max_size_slam=SYS_W))
     seq.backend.sync_timing = True
     it = _UploadAhead(_Prefetcher(ds), ds.transform, dev, runner=seq.frontend.runner)
-    window = {}
-
-    def frames():
-        from torch.profiler import ProfilerActivity, profile
-
-        for i, item in enumerate(it):
-            if i == SYS_PROFILED[0]:
-                torch.cuda.synchronize()
-                torch.cuda.reset_peak_memory_stats()
-                window["prof"] = profile(activities=[ProfilerActivity.CPU,
-                                                     ProfilerActivity.CUDA])
-                window["prof"].start()
-                window["t0"] = time.perf_counter()
-            if i == SYS_PROFILED[1]:
-                torch.cuda.synchronize()
-                window["ms"] = 1e3 * (time.perf_counter() - window["t0"])
-                window["prof"].stop()
-            yield item
 
     import contextlib
 
     t0 = time.time()
     try:
-        seq._stream_loop(frames(), None, None, lambda name: contextlib.nullcontext())
+        with ProfiledFrames(*SYS_PROFILED) as window:
+            seq._stream_loop(it, None, None, lambda name: contextlib.nullcontext())
     finally:
         it.close()
     torch.cuda.synchronize()
@@ -686,8 +732,7 @@ def full_system_phase(dev, cfg):
           f"{timers_ms(seq.backend.factor_graph.timers, 'gn.')}; GN solve "
           f"{1e3 * gn[0] / max(gn[1], 1):.2f} ms at (P, E, edges) "
           f"{seq.backend.factor_graph.solves}", flush=True)
-    print(f"phase 8 profile: {summarize_profile(window['prof'], window['ms'], SYS_PROFILED[1] - SYS_PROFILED[0], 'frames', ('gn.solve',))}",
-          flush=True)
+    print(f"phase 8 profile: {window.summary(('gn.solve',))}", flush=True)
     return launches, ref
 
 
@@ -1058,65 +1103,6 @@ def write_stream(ds, root: str, tum: bool = False) -> str:
     return path
 
 
-class ProfiledFrames:
-    """Within the block, every ``System`` run profiles its frames
-    [first, last) (torch.profiler, CPU and CUDA); ``summary`` and ``idle``
-    read the last window."""
-
-    def __init__(self, first: int, last: int):
-        self.first, self.last = first, last
-        self.prof = self.ms = None
-
-    def __enter__(self):
-        import torch
-        from torch.profiler import ProfilerActivity, profile
-        from artdeco_tpu_torch.runtime import system as S
-
-        self.orig = orig = S.System._stream_loop
-        win = self
-
-        def loop(sys_, it, *a, **k):
-            def frames():
-                for i, item in enumerate(it):
-                    if i == win.first:
-                        torch.cuda.synchronize()
-                        win.prof = profile(activities=[ProfilerActivity.CPU,
-                                                       ProfilerActivity.CUDA])
-                        win.prof.start()
-                        win.t0 = time.perf_counter()
-                    if i == win.last:
-                        win.stop()
-                    yield item
-
-            try:
-                return orig(sys_, frames(), *a, **k)
-            finally:
-                win.stop()
-
-        S.System._stream_loop = loop
-        return self
-
-    def stop(self):
-        import torch
-
-        if self.prof is not None and self.ms is None:
-            torch.cuda.synchronize()
-            self.ms = 1e3 * (time.perf_counter() - self.t0)
-            self.prof.stop()
-
-    def __exit__(self, *exc):
-        from artdeco_tpu_torch.runtime import system as S
-
-        S.System._stream_loop = self.orig
-
-    def idle(self) -> float:
-        busy = sum(e.self_device_time_total for e in device_events(self.prof)) / 1e3
-        return 1.0 - busy / self.ms
-
-    def summary(self) -> str:
-        return summarize_profile(self.prof, self.ms, self.last - self.first, "frames")
-
-
 def run_entry(argv) -> tuple:
     """``run_system.main(argv)`` as users run it, the kernels' launch
     counts set to 0 just before it and read just after.  Returns (its
@@ -1323,6 +1309,7 @@ def disk_stream_phase(dev, cfg, ref) -> tuple:
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         meta, sys_, run_s, launches["phase 11d"] = run_entry(argv)
+    line = check_system_launches(sys_, launches["phase 11d"], "phase 11d")
     cal = sys_.auto_calib
     check(cal is not None, "phase 11d: auto-calibration did not run")
     check(cal["applied"] or cal.get("error", "").startswith("degenerate focal estimate"),
@@ -1333,9 +1320,8 @@ def disk_stream_phase(dev, cfg, ref) -> tuple:
           + ("applied" if cal["applied"] else f"not applied: {cal['error']}, reported")
           + f"), K_slam used {np.round(cal['K_slam'], 3).tolist()}; warnings {warned}; "
           f"{meta['n_frames']} frames in {run_s:.1f} s (model build included), loader "
-          f"{sys_.loader}, lost {sys_.frontend.lost_number} (random weights); launches K1 "
-          f"{launches['phase 11d']['fwd']} K2 {launches['phase 11d']['bwd']} K3 "
-          f"{launches['phase 11d']['k3']}", flush=True)
+          f"{sys_.loader}, lost {sys_.frontend.lost_number} (random weights); {line}",
+          flush=True)
     del sys_
     gc.collect()
     torch.cuda.empty_cache()
