@@ -47,6 +47,13 @@
 // loads issued together and their chains interleaved (each chain keeps
 // channel order).  The query's 24 channels stay in registers as f32.
 //
+// The f32 instance (refine_matches with compute_dtype None, the JAX
+// package's _refine_single in artdeco_tpu/ops/matching.py) is the same
+// walk over float32 descriptors: six planes of 4 channels, 96 bytes a
+// pixel, so twice the bytes of bf16.  A product of two f32 values is not
+// exact, so it multiplies and adds in two roundings (__fmul_rn, __fadd_rn:
+// no FMA contraction), in channel order, as the plain version does.
+//
 // Tensor cores do not fit: each query scores its own 81 candidates, a
 // matrix product computes all pairs of a tile's queries and rows, so 8-16x
 // of its products would be thrown away, and its accumulation order would
@@ -59,23 +66,47 @@
 
 namespace {
 
-constexpr int F = 24;          // descriptor channels (three 16-byte loads)
+constexpr int F = 24;          // descriptor channels
 constexpr int THREADS = 256;
 constexpr int MIN_BLOCKS = 4;  // 1024 threads an SM (50 % occupancy): <= 64 registers
 constexpr int AHEAD = 2;       // window positions whose loads are in flight together
-
-// bf16 -> f32 of the low and the high half of a packed word: exact
-__device__ __forceinline__ float lo_bf16(unsigned x) { return __uint_as_float(x << 16); }
-__device__ __forceinline__ float hi_bf16(unsigned x) { return __uint_as_float(x & 0xffff0000u); }
 
 __device__ __forceinline__ unsigned word(const uint4& v, int k) {
     return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
 }
 
-template <int R>
+// bf16 descriptors: three 16-byte planes of 8 channels; channel c of a
+// plane is the low (even c) or high (odd c) half of word c / 2, exact in
+// f32, and a product of two of them is exact, so the sum takes FMAs.
+struct Bf16 {
+    static constexpr int PLANES = 3;
+    static constexpr int PER_PLANE = 8;
+    static __device__ __forceinline__ float get(const uint4& v, int c) {
+        const unsigned x = word(v, c / 2);
+        return (c & 1) ? __uint_as_float(x & 0xffff0000u) : __uint_as_float(x << 16);
+    }
+    static __device__ __forceinline__ float acc(float s, float a, float b) {
+        return fmaf(a, b, s);
+    }
+};
+
+// f32 descriptors: six 16-byte planes of 4 channels; each product is
+// rounded before it is added.
+struct F32 {
+    static constexpr int PLANES = 6;
+    static constexpr int PER_PLANE = 4;
+    static __device__ __forceinline__ float get(const uint4& v, int c) {
+        return __uint_as_float(word(v, c));
+    }
+    static __device__ __forceinline__ float acc(float s, float a, float b) {
+        return __fadd_rn(s, __fmul_rn(a, b));
+    }
+};
+
+template <int R, typename D>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
-refine_kernel(const uint4* __restrict__ D11,           // (3, h*w) planes of 8 bf16
-              const uint4* __restrict__ D21,           // (n, 3)
+refine_kernel(const uint4* __restrict__ D11,           // (PLANES, h*w) planes
+              const uint4* __restrict__ D21,           // (n, PLANES)
               const int* __restrict__ p_in,            // (n, 2) u, v
               const uint8_t* __restrict__ valid,       // (n,)
               int n, int h, int w, int d_max, int d_min,
@@ -84,6 +115,9 @@ refine_kernel(const uint4* __restrict__ D11,           // (3, h*w) planes of 8 b
               float* __restrict__ score_out)           // (n,)
 {
     constexpr int SPAN = 2 * R + 1;
+    constexpr int NP = D::PLANES;
+    constexpr int PP = D::PER_PLANE;
+    static_assert(NP * PP == F, "a descriptor is F channels");
     const size_t hw = (size_t)h * w;
     const int q = blockIdx.x * blockDim.x + threadIdx.x;
     if (q >= n) return;
@@ -93,13 +127,10 @@ refine_kernel(const uint4* __restrict__ D11,           // (3, h*w) planes of 8 b
     if (valid[q]) {
         float g[F];
 #pragma unroll
-        for (int e = 0; e < 3; ++e) {
-            const uint4 raw = __ldg(D21 + (size_t)q * 3 + e);
+        for (int e = 0; e < NP; ++e) {
+            const uint4 raw = __ldg(D21 + (size_t)q * NP + e);
 #pragma unroll
-            for (int k = 0; k < 4; ++k) {
-                g[8 * e + 2 * k] = lo_bf16(word(raw, k));
-                g[8 * e + 2 * k + 1] = hi_bf16(word(raw, k));
-            }
+            for (int c = 0; c < PP; ++c) g[PP * e + c] = D::get(raw, c);
         }
         for (int d = d_max; d >= d_min; --d) {
             const int u0 = u - R * d;
@@ -130,19 +161,16 @@ refine_kernel(const uint4* __restrict__ D11,           // (3, h*w) planes of 8 b
 #pragma unroll
                     for (int k = 0; k < AHEAD; ++k) s[k] = 0.0f;
 #pragma unroll
-                    for (int e = 0; e < 3; ++e) {
+                    for (int e = 0; e < NP; ++e) {
                         uint4 raw[AHEAD];
 #pragma unroll
                         for (int k = 0; k < AHEAD; ++k)
                             raw[k] = in[k] ? __ldg(px[k] + e * hw) : make_uint4(0, 0, 0, 0);
 #pragma unroll
-                        for (int c = 0; c < 4; ++c) {
+                        for (int c = 0; c < PP; ++c) {
 #pragma unroll
-                            for (int k = 0; k < AHEAD; ++k) {
-                                const unsigned x = word(raw[k], c);
-                                s[k] = fmaf(lo_bf16(x), g[8 * e + 2 * c], s[k]);
-                                s[k] = fmaf(hi_bf16(x), g[8 * e + 2 * c + 1], s[k]);
-                            }
+                            for (int k = 0; k < AHEAD; ++k)
+                                s[k] = D::acc(s[k], D::get(raw[k], c), g[PP * e + c]);
                         }
                     }
 #pragma unroll
@@ -171,44 +199,68 @@ refine_kernel(const uint4* __restrict__ D11,           // (3, h*w) planes of 8 b
 // The radii K3 is built for: r = 4 (config/base.yaml), 5
 // (config/base_outdoor.yaml), 3 (refine_matches' default) and 2.  The
 // wrapper (ops/refine_dense.py RADII) refuses any other.
-template <int R>
+template <int R, typename D>
 int launch(const void* D11, const void* D21, const void* p_in, const void* valid, int n,
            int h, int w, int d_max, int d_min, float init_score, void* p_out,
            void* score_out, cudaStream_t stream)
 {
     const int blocks = (n + THREADS - 1) / THREADS;
-    refine_kernel<R><<<blocks, THREADS, 0, stream>>>(
+    refine_kernel<R, D><<<blocks, THREADS, 0, stream>>>(
         (const uint4*)D11, (const uint4*)D21, (const int*)p_in, (const uint8_t*)valid, n, h,
         w, d_max, d_min, init_score, (int*)p_out, (float*)score_out);
     return (int)cudaGetLastError();
 }
 
+template <typename D>
+int dispatch(const void* D11, const void* D21, const void* p_in, const void* valid, int n,
+             int h, int w, int radius, int d_max, int d_min, float init_score, void* p_out,
+             void* score_out, void* stream)
+{
+    if (n == 0) return 0;
+    const cudaStream_t st = (cudaStream_t)stream;
+    switch (radius) {
+        case 2: return launch<2, D>(D11, D21, p_in, valid, n, h, w, d_max, d_min, init_score, p_out, score_out, st);
+        case 3: return launch<3, D>(D11, D21, p_in, valid, n, h, w, d_max, d_min, init_score, p_out, score_out, st);
+        case 4: return launch<4, D>(D11, D21, p_in, valid, n, h, w, d_max, d_min, init_score, p_out, score_out, st);
+        case 5: return launch<5, D>(D11, D21, p_in, valid, n, h, w, d_max, d_min, init_score, p_out, score_out, st);
+        default: return (int)cudaErrorInvalidValue;
+    }
+}
+
+template <typename D>
+int info(int radius, int* out)
+{
+    switch (radius) {
+        case 2: return launch_info(refine_kernel<2, D>, THREADS, 1, out);
+        case 3: return launch_info(refine_kernel<3, D>, THREADS, 1, out);
+        case 4: return launch_info(refine_kernel<4, D>, THREADS, 1, out);
+        case 5: return launch_info(refine_kernel<5, D>, THREADS, 1, out);
+        default: return (int)cudaErrorInvalidValue;
+    }
+}
+
 }  // namespace
 
+// K3 over bf16 descriptors (the matcher's default refine_dtype)
 extern "C" int artdeco_refine(const void* D11, const void* D21, const void* p_in,
                               const void* valid, int n, int h, int w, int radius,
                               int d_max, int d_min, float init_score, void* p_out,
                               void* score_out, void* stream)
 {
-    if (n == 0) return 0;
-    const cudaStream_t st = (cudaStream_t)stream;
-    switch (radius) {
-        case 2: return launch<2>(D11, D21, p_in, valid, n, h, w, d_max, d_min, init_score, p_out, score_out, st);
-        case 3: return launch<3>(D11, D21, p_in, valid, n, h, w, d_max, d_min, init_score, p_out, score_out, st);
-        case 4: return launch<4>(D11, D21, p_in, valid, n, h, w, d_max, d_min, init_score, p_out, score_out, st);
-        case 5: return launch<5>(D11, D21, p_in, valid, n, h, w, d_max, d_min, init_score, p_out, score_out, st);
-        default: return (int)cudaErrorInvalidValue;
-    }
+    return dispatch<Bf16>(D11, D21, p_in, valid, n, h, w, radius, d_max, d_min, init_score,
+                          p_out, score_out, stream);
 }
 
-// K3's launch shape at `radius` (launch_info.cuh)
-extern "C" int artdeco_refine_info(int radius, int* info)
+// K3's f32 instance (refine_dtype None)
+extern "C" int artdeco_refine_f32(const void* D11, const void* D21, const void* p_in,
+                                  const void* valid, int n, int h, int w, int radius,
+                                  int d_max, int d_min, float init_score, void* p_out,
+                                  void* score_out, void* stream)
 {
-    switch (radius) {
-        case 2: return launch_info(refine_kernel<2>, THREADS, 1, info);
-        case 3: return launch_info(refine_kernel<3>, THREADS, 1, info);
-        case 4: return launch_info(refine_kernel<4>, THREADS, 1, info);
-        case 5: return launch_info(refine_kernel<5>, THREADS, 1, info);
-        default: return (int)cudaErrorInvalidValue;
-    }
+    return dispatch<F32>(D11, D21, p_in, valid, n, h, w, radius, d_max, d_min, init_score,
+                         p_out, score_out, stream);
 }
+
+// K3's launch shape at `radius` (launch_info.cuh), bf16 and f32
+extern "C" int artdeco_refine_info(int radius, int* out) { return info<Bf16>(radius, out); }
+extern "C" int artdeco_refine_f32_info(int radius, int* out) { return info<F32>(radius, out); }

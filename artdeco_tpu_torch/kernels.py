@@ -41,10 +41,14 @@ SIGNATURES = {
     # p_out, score_out, stream
     "artdeco_refine": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float,
                        _P, _P, _P),
+    # the same over f32 descriptors
+    "artdeco_refine_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float,
+                           _P, _P, _P),
     # info (7 ints; launch_info.cuh)
     "artdeco_composite_fwd_info": (_P,),
     # radius, info
     "artdeco_refine_info": (_I, _P),
+    "artdeco_refine_f32_info": (_I, _P),
 }
 # what launch_info.cuh writes, in order
 INFO_KEYS = ("threads", "cluster", "registers", "spill_bytes", "shared_bytes",
@@ -129,7 +133,8 @@ def launch_info(name: str, *args) -> dict:
     """The launch shape of a kernel as the runtime reports it (``INFO_KEYS``;
     -1 where the runtime refuses a query), from the library's ``name``
     function: ``artdeco_composite_fwd_info()`` (K1) or
-    ``artdeco_refine_info(radius)`` (K3)."""
+    ``artdeco_refine_info(radius)`` (K3) or ``artdeco_refine_f32_info(radius)``
+    (K3's f32 instance)."""
     info = (ctypes.c_int * len(INFO_KEYS))()
     check(getattr(load(), name)(*args, ctypes.cast(info, ctypes.c_void_p)), name)
     return dict(zip(INFO_KEYS, info))

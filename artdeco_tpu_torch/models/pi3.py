@@ -496,7 +496,7 @@ def state_dict_from_flax(params: dict, cfg: Pi3Config = Pi3Config()) -> dict:
     return sd
 
 
-def _read_state_dict(path: str) -> dict:
+def read_state_dict(path: str) -> dict:
     """A checkpoint's state dict: ``.safetensors`` through ``safetensors``
     (raises when the package is missing), else ``torch.load``."""
     if path.endswith(".npz"):
@@ -521,7 +521,7 @@ def load_pi3_apply(checkpoint_path: str = "", full: bool = True, state_dict: dic
     cfg = Pi3Config() if full else tiny_pi3_config()
     resize_hw = (392, 518) if full else (112, 140)
     if state_dict is None and checkpoint_path and os.path.isfile(checkpoint_path):
-        state_dict = _read_state_dict(checkpoint_path)
+        state_dict = read_state_dict(checkpoint_path)
         print(f"loaded Pi3 weights from {checkpoint_path}")
     if state_dict is not None:
         model = load_pi3_state_dict(empty_pi3(cfg, device), state_dict)

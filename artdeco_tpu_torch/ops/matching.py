@@ -192,16 +192,20 @@ def refine_matches(D11, D21, p1, radius: int = 3, dilation_max: int = 1,
     """Coarse-to-fine local descriptor search around current matches.
 
     D11 (b, h, w, f), D21 (b, n, f), p1 (b, n, 2) int, valid (b, n) bool
-    or None.  The bf16 search (``compute_dtype`` bfloat16, the matcher's
-    default) runs through K3.  The JAX package's f32 stack path
-    (``compute_dtype`` None) is not ported."""
-    if compute_dtype not in (torch.bfloat16, "bfloat16"):
-        raise NotImplementedError(
-            "refine_matches: only the bf16 search (refine_dtype 'bfloat16') is ported; "
-            "the f32 stack path of the JAX package is not")
+    or None.  ``compute_dtype`` bfloat16 (the matcher's default) runs K3
+    over bf16 descriptors, the queries in ``valid`` only; None runs K3's
+    f32 instance on every query, as the JAX package's ``_refine_single``
+    ignores ``valid``."""
+    if compute_dtype in (torch.bfloat16, "bfloat16"):
+        dtype = torch.bfloat16
+    elif compute_dtype is None:
+        dtype, valid = torch.float32, None
+    else:
+        raise ValueError(f"refine_matches: compute_dtype {compute_dtype!r} is neither bfloat16 "
+                         "nor None")
     rows = [refine_matches_dense_single(D11[e], D21[e], p1[e], radius=radius,
                                         dilation_max=dilation_max,
-                                        valid=None if valid is None else valid[e])
+                                        valid=None if valid is None else valid[e], dtype=dtype)
             for e in range(D11.shape[0])]
     return torch.stack(rows).to(p1.dtype)
 

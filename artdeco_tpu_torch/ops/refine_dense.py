@@ -20,6 +20,12 @@ does); products of two bf16 values are exact in f32 and the 24-channel sums
 run in channel order, so K3 (which adds each product with an FMA) and
 ``window_argmax_plain`` (a multiply, then an add) agree bit for bit.
 XLA may sum in another order, so a near-tie can pick another offset there.
+
+K3's f32 instance serves ``refine_matches`` with ``compute_dtype`` None
+(the JAX package's ``_refine_single`` in ``ops/matching.py``, the same
+first-argmax search in float32, which refines every query whatever
+``valid`` says): the same search over float32 descriptors, each product
+rounded before it is added, as the plain version does.
 """
 
 from __future__ import annotations
@@ -37,8 +43,9 @@ _CHUNK = 8192                # queries per gather chunk of the plain version
 def _check_inputs(D11b, D21b, p, valid):
     h, w, f = D11b.shape
     n = D21b.shape[0]
-    if D11b.dtype != torch.bfloat16 or D21b.dtype != torch.bfloat16:
-        raise ValueError("window_argmax: descriptors must be bfloat16")
+    if D11b.dtype not in (torch.bfloat16, torch.float32) or D21b.dtype != D11b.dtype:
+        raise ValueError("window_argmax: descriptors must be both bfloat16 or both float32, "
+                         f"got {D11b.dtype} and {D21b.dtype}")
     if D21b.shape != (n, f) or p.shape != (n, 2) or p.dtype != torch.int32 \
             or valid.shape != (n,) or valid.dtype != torch.bool:
         raise ValueError(f"window_argmax: bad shapes D11 {tuple(D11b.shape)} D21 "
@@ -51,7 +58,8 @@ def _check_inputs(D11b, D21b, p, valid):
 
 def window_argmax_plain(D11b, D21b, p, valid, radius: int, d_max: int, d_min: int,
                         init_score: float):
-    """Plain PyTorch K3: the per-query search on levels d_max..d_min.
+    """Plain PyTorch K3 (both instances): the per-query search on levels
+    d_max..d_min.
 
     Per chunk of queries, each channel's window samples are gathered from
     the zero-padded channel-major image (out-of-image samples read zeros
@@ -96,12 +104,13 @@ def window_argmax(D11b, D21b, p, valid, radius: int, d_max: int, d_min: int = 1,
                   init_score: float = FLT_MIN):
     """K3: the per-query window-argmax search of refine_matches.
 
-    D11b (h, w, f) and D21b (n, f) bf16, p (n, 2) int32 centres (u, v),
-    valid (n,) bool.  Searches levels d_max..d_min with the running max
-    starting at ``init_score``; returns (p_new (n, 2) int32, running max
-    (n,) f32).  Launches the CUDA kernel for CUDA tensors (counted in
-    ``window_argmax.launches``; radii ``RADII``, others raise); the plain
-    version for CPU tensors.
+    D11b (h, w, f) and D21b (n, f) both bf16 or both f32, p (n, 2) int32
+    centres (u, v), valid (n,) bool.  Searches levels d_max..d_min with the
+    running max starting at ``init_score``; returns (p_new (n, 2) int32,
+    running max (n,) f32).  Launches the CUDA kernel for CUDA tensors
+    (counted in ``window_argmax.launches``, the f32 instance in
+    ``window_argmax.launches_f32``; radii ``RADII``, others raise); the
+    plain version for CPU tensors.
 
     Replaces the Pallas ``_band_kernel`` (``artdeco_tpu/ops/refine_pallas.py``)."""
     _check_inputs(D11b, D21b, p, valid)
@@ -114,40 +123,49 @@ def window_argmax(D11b, D21b, p, valid, radius: int, d_max: int, d_min: int = 1,
         raise ValueError(f"window_argmax: K3 is built for {DESC_DIM} channels, got {f}")
     if radius not in RADII:
         raise ValueError(f"window_argmax: K3 is built for radii {RADII}, got {radius}")
-    # the image as three planes of 8 channels (one 16-byte load a pixel in
-    # each: a warp's load reads contiguous bytes); 16-byte query row loads
-    planes = D11b.reshape(h, w, 3, f // 3).permute(2, 0, 1, 3).contiguous()
+    # the image as planes of 16 bytes a pixel (8 bf16 or 4 f32 channels:
+    # a warp's load reads contiguous bytes); 16-byte query row loads
+    f32 = D11b.dtype == torch.float32
+    n_planes = 6 if f32 else 3
+    planes = D11b.reshape(h, w, n_planes, f // n_planes).permute(2, 0, 1, 3).contiguous()
     if not D21b.is_contiguous() or D21b.data_ptr() % 16:
         D21b = D21b.clone()
     p, valid = p.contiguous(), valid.contiguous()
     n = p.shape[0]
     p_out = torch.empty_like(p)
     score = torch.empty(n, dtype=torch.float32, device=p.device)
-    err = kernels.load().artdeco_refine(
+    fn = kernels.load().artdeco_refine_f32 if f32 else kernels.load().artdeco_refine
+    err = fn(
         planes.data_ptr(), D21b.data_ptr(), p.data_ptr(), valid.data_ptr(), n, h, w,
         radius, d_max, d_min, init_score, p_out.data_ptr(), score.data_ptr(),
         torch.cuda.current_stream(p.device).cuda_stream)
     kernels.check(err, "window_argmax")
-    window_argmax.launches += 1
+    if f32:
+        window_argmax.launches_f32 += 1
+    else:
+        window_argmax.launches += 1
     return p_out, score
 
 
 window_argmax.launches = 0
+window_argmax.launches_f32 = 0
 
 
 def refine_matches_dense_single(D11, D21, p1, radius: int = 4, dilation_max: int = 5,
-                                valid=None):
+                                valid=None, dtype: torch.dtype = torch.bfloat16):
     """Coarse-to-fine descriptor search of one image pair.
 
     D11 (h, w, f) descriptors of frame 1, D21 (n, f) query descriptors,
     p1 (n, 2) int current matches into frame 1, valid (n,) bool queries to
-    refine (None = all; invalid queries keep their position).  Returns
-    p_new (n, 2) int32 — the JAX function's first result."""
+    refine (None = all; invalid queries keep their position), ``dtype``
+    the descriptors' type in the search (bf16, or f32 for K3's f32
+    instance).  Returns p_new (n, 2) int32 — the JAX function's first
+    result."""
     n = p1.shape[0]
     if valid is None:
         valid = torch.ones(n, dtype=torch.bool, device=p1.device)
-    D11b = D11.to(torch.bfloat16).contiguous()
-    D21b = D21.reshape(n, -1).to(torch.bfloat16).contiguous()
+    D11b = D11.to(dtype).contiguous()
+    D21b = D21.reshape(n, -1).to(dtype).contiguous()
     p_new, _ = window_argmax(D11b, D21b, p1.to(torch.int32).contiguous(),
                              valid.reshape(n).to(torch.bool), radius, dilation_max, 1,
                              FLT_MIN)

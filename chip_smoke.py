@@ -108,6 +108,23 @@ and a TUM sequence) through the entry point.
    share of frames 66-73.  ``NATIVE_PHASES`` records whether the card's
    machine can build the native loader (it cannot: no codec headers).
 
+12. the side models and the keypoint-SfM bootstrap, each on seeded
+   inputs: (a) XFeat's detector at top_k 4096 and 1024 and its dense
+   variant on a 512x384 frame (random weights), the keypoints equal to the
+   port's own CPU run of the same weights (but for swaps of near-tied
+   scores), descriptors within 1e-4; (b) DepthAnythingV2 at ViT-L width
+   (random weights) through ``MonoDepthEstimator`` (392x518 into the net):
+   device ms, peak memory, finite non-negative inverse depth; (c)
+   ``PoseInitializer.bootstrap`` on frames 0..8 of the 512x384 stream: the
+   JAX package's result there, False, with the counts of the port's CPU
+   run but for matches decided by near-ties (similarities < 1e-6 apart),
+   and the ms of each stage; (d) ``mini_ba`` and ``opt_pnp`` on a
+   1024-point scene against its truth; (e) ``knn_mean_sq_dist`` on 10^5
+   points against the CPU's and against a brute-force 3-NN; (f) K3's f32
+   instance (``refine_dtype: null``) bitwise against its plain version at
+   the stream shape, timed beside bf16 K3, and the tracking frontend over
+   24 frames with ``refine_dtype: null``: one f32 launch a tracked frame.
+
 Prints one line per phase, then a JSON line of the kernels and, last,
 ``{"ok": true, "device": {...}}``.  Any failed check raises: the exit code
 is then not 0 and the last line is not printed.
@@ -150,6 +167,12 @@ SYS10_FRAMES = 32            # depth of the model-driven System run
 DISK_ENTRY_FRAMES = 120      # phase 11b: the entry point on the first frames of 11a's folder
 TUM_W, TUM_H, TUM_SLAM, TUM_FRAMES, TUM_TEST_HOLD = 640, 480, 512, 120, 30   # phase 11c
 CALIB_FRAMES = 8             # phase 11d
+XFEAT_TOPK = (4096, 1024)    # phase 12a
+DAV2_ENCODER = "vitl"        # phase 12b: dav2_config("vitl"), the released ViT-L
+BOOT_FRAMES = 9              # phase 12c: frames 0..8
+SOLVER_POINTS = 1024         # phase 12d
+KNN_POINTS = 100_000         # phase 12e
+F32_TRACK_FRAMES = 24        # phase 12f
 # The H100 machine this script targets has no libjpeg: g++ there reads
 # "fatal error: jpeglib.h: No such file or directory", so the native
 # loader cannot be built on it.  By this fixed decision phase 11 runs the
@@ -596,6 +619,7 @@ def reset_launches():
     from artdeco_tpu_torch.ops.splat import composite as C
 
     C.composite_fwd.launches = C.composite_bwd.launches = RD.window_argmax.launches = 0
+    RD.window_argmax.launches_f32 = 0
 
 
 def read_launches() -> dict:
@@ -603,7 +627,7 @@ def read_launches() -> dict:
     from artdeco_tpu_torch.ops.splat import composite as C
 
     return {"fwd": C.composite_fwd.launches, "bwd": C.composite_bwd.launches,
-            "k3": RD.window_argmax.launches}
+            "k3": RD.window_argmax.launches, "k3_f32": RD.window_argmax.launches_f32}
 
 
 def check_system_launches(sys_, launches: dict, what: str) -> str:
@@ -1328,6 +1352,414 @@ def disk_stream_phase(dev, cfg, ref) -> tuple:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the side models and the keypoint-SfM bootstrap
+# ---------------------------------------------------------------------------
+
+def chw(img_hwc) -> np.ndarray:
+    """A uint8 (H, W, 3) frame as (3, H, W) float32 in [0, 1]."""
+    return img_hwc.astype(np.float32).transpose(2, 0, 1) / 255.0
+
+
+def same_keypoints(ka, sa, kb, tol: float) -> int:
+    """Check that two detections hold the same keypoints, in the same order
+    but for swaps of scores within ``tol`` of each other; returns the rows
+    out of place (the CPU test's rule, tests/torch_parity.py)."""
+    ka, kb, sa = (np.asarray(x) for x in (ka, kb, sa))
+    check(sorted(map(tuple, ka.tolist())) == sorted(map(tuple, kb.tolist())),
+          "the card's and the CPU's keypoints are different sets")
+    pos = {tuple(k): i for i, k in enumerate(ka.tolist())}
+    moved = [(i, pos[tuple(k)]) for i, k in enumerate(kb.tolist()) if pos[tuple(k)] != i]
+    for i, j in moved:
+        check(abs(float(sa[i]) - float(sa[j])) <= tol,
+              f"keypoint rows {i} and {j} swapped between scores {sa[i]} and {sa[j]}")
+    return len(moved)
+
+
+def xfeat_phase(dev, img) -> str:
+    """12a: XFeat's detector at top_k 4096 and 1024 and its dense variant
+    at 512x384 on seeded random weights, against the port's own CPU run of
+    the same weights and frame: the same keypoints (but for swaps of
+    near-tied scores), descriptors within 1e-4, scores within 1e-5."""
+    import copy
+
+    import torch
+    from artdeco_tpu_torch.models import xfeat as TX
+
+    cpu = torch.device("cpu")
+    parts = []
+    x_dev = torch.as_tensor(img, device=dev)[None]
+    for top_k in XFEAT_TOPK:
+        cfg = TX.sparse_config(top_k=top_k)
+        fn = TX.make_detector(top_k=top_k, device=dev, seed=SEED)
+        k, f, s = (a.cpu().numpy() for a in fn(img))
+        ms = cuda_ms(lambda: TX.detect_and_compute(fn.model, x_dev, cfg), n=10)
+        ck, cf, cs = (a.numpy() for a in TX.detect_and_compute(
+            copy.deepcopy(fn.model).to(cpu), torch.as_tensor(img)[None], cfg))
+        moved = same_keypoints(ck, cs, k, 1e-5)
+        pos = {tuple(r): i for i, r in enumerate(ck.tolist())}
+        order = np.asarray([pos[tuple(r)] for r in k.tolist()])
+        f_err, s_err = np.abs(f - cf[order]).max(), np.abs(s - cs[order]).max()
+        check(f_err <= 1e-4 and s_err <= 1e-5,
+              f"XFeat top_k {top_k}: descriptors {f_err:.3g}, scores {s_err:.3g} from the CPU's")
+        parts.append(f"top_k {top_k}: {ms:.3f} ms, {int((s > 0).sum())} keypoints scoring > 0, "
+                     f"equal to the CPU's ({moved} rows swapped between near-tied scores; "
+                     f"descriptors within {f_err:.3g}, scores within {s_err:.3g})")
+        if top_k == XFEAT_TOPK[0]:
+            parts.append("profile: " + profile_window(
+                lambda: TX.detect_and_compute(fn.model, x_dev, cfg), 1, "calls"))
+    dense = TX.make_dense_fn(device=dev, seed=SEED)
+    out = TX.dense_features(dense.model, x_dev)
+    ms = cuda_ms(lambda: TX.dense_features(dense.model, x_dev), n=10)
+    want = (1, img.shape[1] // 32 * 8, img.shape[2] // 32 * 8, 64)
+    check(tuple(out.shape) == want and bool(out.isfinite().all()),
+          f"dense features {tuple(out.shape)}")
+    parts.append(f"dense_features {ms:.3f} ms -> {tuple(out.shape)}")
+    return "; ".join(parts)
+
+
+def dav2_phase(dev, img) -> str:
+    """12b: DepthAnythingV2 at ``dav2_config(DAV2_ENCODER)`` width on seeded
+    random weights through ``MonoDepthEstimator``: a 512x384 frame, 392x518
+    into the net.  Finite, non-negative inverse depth of the frame's shape."""
+    import torch
+    from artdeco_tpu_torch.mapper.mono_depth import MonoDepthEstimator
+    from artdeco_tpu_torch.models.depth_anything import make_dav2_model_fn
+
+    fn = make_dav2_model_fn(encoder=DAV2_ENCODER, device=dev, seed=SEED)
+    n_params = sum(p.numel() for p in fn.model.parameters())
+    est = MonoDepthEstimator(fn)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 2**30      # the weights and earlier phases' tensors
+    t0 = time.time()
+    idepth, conf = est(img)
+    call_ms = 1e3 * (time.time() - t0)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(idepth.shape == img.shape[1:] and np.isfinite(idepth).all()
+          and (idepth >= 0).all() and np.isfinite(conf).all(),
+          f"mono depth {idepth.shape}, finite {np.isfinite(idepth).all()}, min {idepth.min()}")
+    h, w = img.shape[1:]
+    nh, nw = (max(int(round(a * 518 / max(h, w) / 14)), 1) * 14 for a in (h, w))
+    x = torch.zeros(1, 3, nh, nw, device=dev)
+    with torch.no_grad():
+        ms = cuda_ms(lambda: fn.model(x), n=5)
+    del fn, est
+    gc.collect()
+    torch.cuda.empty_cache()
+    return (f"{DAV2_ENCODER}, {n_params / 1e6:.1f} M parameters: forward at {nh}x{nw} "
+            f"{ms:.2f} ms (device); MonoDepthEstimator call {call_ms:.1f} ms (host clock, "
+            f"with the resizes, the copy back and the confidence); peak {peak:.2f} GiB, "
+            f"{peak - held:.2f} above the {held:.2f} held before the call; "
+            f"inverse depth {idepth.shape} in [{idepth.min():.3g}, {idepth.max():.3g}]")
+
+
+def bootstrap_stages(pi, frames) -> dict:
+    """The bootstrap's stages one by one, as ``bootstrap`` runs them, each
+    timed to the device's end: ms of the detection of all frames, the
+    match, RANSAC and triangulation."""
+    import torch
+    from artdeco_tpu_torch.poses.matcher import match_described
+    from artdeco_tpu_torch.poses.triangulator import triangulate
+
+    sync = torch.cuda.synchronize
+    ms = {}
+    t0 = time.time()
+    dks = [pi.detect(f) for f in frames]
+    sync()
+    ms["detect"] = 1e3 * (time.time() - t0)
+    t0 = time.time()
+    m = match_described(dks[0], dks[-1], min_sim=0.7)
+    sync()
+    ms["match"] = 1e3 * (time.time() - t0)
+    t0 = time.time()
+    _, inl, _ = pi.ransac.estimate(dks[0].kpts[m.idx], m.kpts_other)
+    sync()
+    ms["ransac"] = 1e3 * (time.time() - t0)
+    Rt1 = torch.eye(4, device=pi.device)
+    Rt1[0, 3] = 0.1
+    t0 = time.time()
+    triangulate(dks[0].kpts[m.idx][inl], m.kpts_other[inl][None], torch.eye(4, device=pi.device),
+                Rt1[None], torch.tensor(pi.f, device=pi.device), pi.centre, max_error=5e-2,
+                min_dis=1e-6)
+    sync()
+    ms["triangulate"] = 1e3 * (time.time() - t0)
+    return ms
+
+
+def near_tie_matches(pi, cpu, frames) -> tuple:
+    """The bootstrap's match of the first and the last frame on the card
+    and on the CPU: each frame's keypoints must agree (but for swaps of
+    near-tied scores), and a match that only one device makes must be a
+    near-tie there, a frame-0 keypoint whose two most similar candidates
+    differ by less than 1e-6 in cosine similarity.  Returns (the matches
+    that differ, the largest such gap)."""
+    import torch
+    from artdeco_tpu_torch.poses.matcher import match_described
+
+    dks = [[p.detect(frames[i]) for i in (0, -1)] for p in (pi, cpu)]
+    for a, b in zip(dks[0], dks[1]):
+        same_keypoints(b.kpts.numpy(), b.scores.numpy(), a.kpts.cpu().numpy(), 1e-9)
+    pairs = []
+    for d0, d1 in dks:
+        m = match_described(d0, d1, min_sim=0.7)
+        # frame-0 keypoints by position, so that a swapped row still matches
+        pairs.append({(tuple(d0.kpts[i].tolist()), tuple(m.kpts_other[j].tolist()))
+                      for j, i in enumerate(m.idx.tolist())})
+    diff = pairs[0] ^ pairs[1]
+    d0, d1 = dks[1]
+    sim = (d0.desc @ d1.desc.T).double()
+    rows = {tuple(k): i for i, k in enumerate(d0.kpts.tolist())}
+    gaps = []
+    for k0, _ in diff:
+        top2 = torch.topk(sim[rows[k0]], 2).values
+        gaps.append(float(top2[0] - top2[1]))
+    check(all(g < 1e-6 for g in gaps), f"matches differ away from near-ties: gaps {gaps}")
+    return len(diff), max(gaps, default=0.0)
+
+
+def bootstrap_phase(dev, frames) -> str:
+    """12c: ``PoseInitializer.bootstrap`` as users call it, on frames 0..8
+    of the 512x384 stream, against the port's CPU run of the same frames.
+    The JAX package gives False there (689 matches, 522 inliers, no point
+    in front of both cameras at its fixed baseline guess), and so must the
+    port on both devices.  The counts must be the CPU's but for matches
+    decided by a near-tie (``near_tie_matches``): the first row's
+    zero-score keypoints carry clamped patches that nearly repeat, and
+    the card's sums, in another order, may pick the other of two
+    candidates 1e-7 apart."""
+    import torch
+    from artdeco_tpu_torch.poses.pose_initializer import PoseInitializer
+
+    h, w = frames[0].shape[1:]
+    pi = PoseInitializer(f=0.8 * w, centre=(w / 2, h / 2), device=dev)
+    t0 = time.time()
+    ok = pi.bootstrap(frames)
+    torch.cuda.synchronize()
+    boot_ms = 1e3 * (time.time() - t0)
+    cpu = PoseInitializer(f=0.8 * w, centre=(w / 2, h / 2), device=torch.device("cpu"))
+    cpu_ok = cpu.bootstrap(frames)
+    check(ok is cpu_ok is False, f"bootstrap {ok} on the card, {cpu_ok} on the CPU, not False")
+    n_diff, gap = near_tie_matches(pi, cpu, frames)
+    for k in ("matches", "inliers"):
+        check(abs(pi.stats[k] - cpu.stats[k]) <= n_diff,
+              f"bootstrap {k}: {pi.stats[k]} on the card, {cpu.stats[k]} on the CPU, "
+              f"{n_diff} matches decided by near-ties")
+    check(pi.stats["triangulated"] == cpu.stats["triangulated"],
+          f"triangulated {pi.stats['triangulated']} on the card, {cpu.stats['triangulated']} "
+          f"on the CPU")
+    stages = bootstrap_stages(pi, frames)
+    return (f"{len(frames)} frames: result {ok}; {pi.stats['matches']} matches, "
+            f"{pi.stats['inliers']} RANSAC inliers, {pi.stats['triangulated']} triangulated; "
+            f"the CPU's {cpu.stats['matches']} / {cpu.stats['inliers']} / "
+            f"{cpu.stats['triangulated']} ({n_diff} matches differ, each a near-tie: "
+            f"similarity gap <= {gap:.3g}); bootstrap {boot_ms:.1f} ms; stages: "
+            + ", ".join(f"{k} {v:.1f} ms" for k, v in stages.items()))
+
+
+def solver_scene(n: int, seed: int = 0):
+    """``tests/test_poses.py``'s two-view scene with ``n`` points (f 100,
+    centre (64, 48)): points, both views' pixels, the second camera's R, t."""
+    import torch
+    from artdeco_tpu_torch.geometry import lie
+
+    rng = np.random.RandomState(seed)
+    X = rng.randn(n, 3) * np.array([1.0, 0.8, 0.5]) + np.array([0, 0, 4.0])
+    T2 = lie.sim3_exp(torch.tensor([0.3, 0.05, 0.02, 0.03, -0.04, 0.02, 0.0]))
+    R2 = lie.quat_to_matrix(T2[3:7]).double().numpy()
+    t2 = T2[:3].double().numpy()
+
+    def proj(Xc):
+        return 100.0 * Xc[:, :2] / Xc[:, 2:3] + np.array([64.0, 48.0])
+
+    return X, proj(X), proj(X @ R2.T + t2), R2, t2
+
+
+def solvers_phase(dev) -> str:
+    """12d: ``mini_ba`` (2 cameras, ``optimize_pts``, 40 iterations) and
+    ``opt_pnp`` on a seeded 1024-point scene, against the scene's truth,
+    with the CPU tests' tolerances (tests/test_torch_poses.py): the
+    relative rotation and the translation's direction within 1e-5 after
+    mini-BA, the PnP pose within 1e-3 in the Sim(3) log."""
+    import torch
+    from artdeco_tpu_torch.geometry import lie
+    from artdeco_tpu_torch.mapper.keyframe import sixd_to_mtx
+    from artdeco_tpu_torch.poses.mini_ba import mini_ba
+    from artdeco_tpu_torch.poses.pnp import opt_pnp
+
+    X, uv1, uv2, R2, t2 = solver_scene(SOLVER_POINTS)
+    rng = np.random.RandomState(1)
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)   # noqa: E731
+    R6D0 = f32(np.stack([np.eye(3)[:, :2], R2[:, :2] + 0.02 * rng.randn(3, 2)]))
+    t0_ = f32(np.stack([np.zeros(3), t2 + [0.05, -0.03, 0.04]]))
+    centre = f32([64.0, 48.0])
+    args = (R6D0, t0_, f32(X), f32(np.stack([uv1, uv2])),
+            torch.ones(2, len(X), dtype=torch.bool, device=dev), f32(100.0), centre)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    R6D, t, _, _, cost = mini_ba(*args, iters=40, optimize_pts=True)
+    torch.cuda.synchronize()
+    ba_ms = 1e3 * (time.time() - t0)
+    prof = profile_window(lambda: mini_ba(*args, iters=2, optimize_pts=True), 2, "iterations")
+    R = sixd_to_mtx(R6D).double().cpu().numpy()
+    tt = t.double().cpu().numpy()
+    Rr = R[1] @ R[0].T
+    tr = tt[1] - Rr @ tt[0]
+    r_err = np.abs(Rr - R2).max()
+    t_err = np.abs(tr / np.linalg.norm(tr) - t2 / np.linalg.norm(t2)).max()
+    check(r_err <= 1e-5 and t_err <= 1e-5,
+          f"mini-BA: relative rotation {r_err:.3g}, translation direction {t_err:.3g} off")
+
+    T_gt = torch.cat([torch.as_tensor(t2, dtype=torch.float32),
+                      lie.matrix_to_quat(torch.as_tensor(R2, dtype=torch.float32))])
+    xi = torch.tensor([0.1, -0.05, 0.08, 0.05, -0.03, 0.06, 0.0])
+    T0 = lie.sim3_mul(lie.sim3_exp(xi), torch.cat([T_gt, torch.ones(1)]))[:7]
+    K = f32([[100.0, 0, 64.0], [0, 100.0, 48.0], [0, 0, 1]])
+    pargs = (T0.to(dev)[None], f32(X)[None], f32(uv2)[None],
+             torch.ones(1, len(X), dtype=torch.bool, device=dev), K)
+    T_out, _ = opt_pnp(*pargs, iters=25)
+    pnp_ms = cuda_ms(lambda: opt_pnp(*pargs, iters=25), n=5)
+    rel = lie.sim3_mul(lie.sim3_inv(torch.cat([T_out[0].cpu(), torch.ones(1)])),
+                       torch.cat([T_gt, torch.ones(1)]))
+    p_err = float(torch.linalg.vector_norm(lie.sim3_log(rel)[:6]))
+    check(p_err < 1e-3, f"PnP pose {p_err:.3g} off in the Sim(3) log")
+    dim = 18 + 3 * SOLVER_POINTS
+    return (f"mini-BA over {SOLVER_POINTS} points ({dim} unknowns, Jacobian "
+            f"{6 * SOLVER_POINTS}x{dim}), 40 iterations: {ba_ms:.0f} ms (host clock), cost "
+            f"{float(cost):.3g}, relative rotation {r_err:.3g} and translation direction "
+            f"{t_err:.3g} from the truth (profile: {prof}); PnP over {SOLVER_POINTS} points, "
+            f"25 iterations: {pnp_ms:.2f} ms, pose {p_err:.3g} from the truth")
+
+
+def knn_phase(dev) -> str:
+    """12e: ``knn_mean_sq_dist(k=3, window=16)`` on a seeded 10^5-point
+    cloud: within 1e-6 relative of the port's CPU result; beside it the
+    exact 3-NN mean by brute force on the card (``torch.cdist`` in chunks,
+    a check only), and the share of points where the approximation
+    differs from it."""
+    import torch
+    from artdeco_tpu_torch.ops.knn import knn_mean_sq_dist
+
+    rng = np.random.RandomState(SEED)
+    xyz = (rng.randn(KNN_POINTS, 3) * [2.0, 1.0, 0.5]).astype(np.float32)
+    x = torch.as_tensor(xyz, device=dev)
+    got = knn_mean_sq_dist(x)
+    ms = cuda_ms(lambda: knn_mean_sq_dist(x), n=10)
+    ref = knn_mean_sq_dist(torch.as_tensor(xyz)).numpy()
+    g = got.cpu().numpy()
+    rel = np.abs(g - ref) / np.maximum(np.abs(ref), 1e-30)
+    check(rel.max() <= 1e-6, f"knn: {rel.max():.3g} relative from the CPU's")
+    exact = torch.empty(KNN_POINTS, device=dev)
+    for c0 in range(0, KNN_POINTS, 4096):
+        d = torch.cdist(x[c0:c0 + 4096], x) ** 2
+        d[torch.arange(d.shape[0], device=dev), torch.arange(c0, c0 + d.shape[0], device=dev)] = \
+            torch.inf
+        exact[c0:c0 + 4096] = torch.topk(d, 3, dim=1, largest=False).values.mean(dim=1)
+    e = exact.cpu().numpy()
+    differs = np.abs(g - e) > 1e-4 * np.abs(e) + 1e-9
+    prof = profile_window(lambda: knn_mean_sq_dist(x), 1, "calls")
+    return (f"{KNN_POINTS} points, k 3, window 16: {ms:.3f} ms (profile: {prof}), within {rel.max():.3g} "
+            f"relative of the CPU's; differs from the exact 3-NN mean on "
+            f"{differs.mean():.4f} of the points (median ratio approximate / exact "
+            f"{np.median(g / np.maximum(e, 1e-30)):.3f})")
+
+
+def k3_f32_phase(dev, tcfg, tds) -> tuple:
+    """12f: K3's f32 instance.  Its launch shape; against its plain version
+    at the stream shape (384x512, 24 f32 channels, radius 4, dilations
+    5..1, every query refined as the JAX f32 search does), positions and
+    scores bitwise; its time beside bf16 K3's.  Then the tracking frontend
+    over the stream's first ``F32_TRACK_FRAMES`` frames with
+    ``matching.refine_dtype: null``, as a user sets it: each tracked
+    frame's match launches the f32 instance once and bf16 K3 never, no
+    frame is lost.  Returns (summary, the golden's numbers, launches)."""
+    import torch
+    from artdeco_tpu_torch import kernels
+    from artdeco_tpu_torch.models.oracle import OracleRunner
+    from artdeco_tpu_torch.ops import matching as M
+    from artdeco_tpu_torch.ops import refine_dense as RD
+    from artdeco_tpu_torch.vslam.frontend import Frontend
+    from artdeco_tpu_torch.vslam.keyframes import KeyframeStore
+
+    h, w = tds.H_slam, tds.W_slam
+    mcfg = dict(tcfg["matching"], refine_dtype=None)
+    runner = OracleRunner((h, w), tds.K_slam, mcfg, device=dev)
+    frames = [tds[i] for i in range(F32_TRACK_FRAMES)]
+    for i in range(F32_TRACK_FRAMES):
+        T = np.ones(8, np.float32)
+        T[:7] = tds.Twc_gt[i]
+        runner.register(tds.transform.to_slam(frames[i][0]), i, T)
+    X11 = runner._dev(1)[0].reshape(1, h, w, 3)
+    X21 = runner._cross_dev(0, 1).reshape(1, h, w, 3)
+    p1, _ = M.project_matches(X11, X21, None, max_iter=int(mcfg["max_iter"]),
+                              lambda_init=float(mcfg["lambda_init"]),
+                              cost_thresh=float(mcfg["convergence_thresh"]),
+                              dist_thresh=float(mcfg["dist_thresh"]))
+    D11 = runner._dev(1)[1].reshape(h, w, -1)
+    D21 = runner._dev(0)[1]
+    check(D11.dtype == D21.dtype == torch.float32, "oracle descriptors are not float32")
+    valid = torch.ones(h * w, dtype=torch.bool, device=dev)
+    args = (D11.contiguous(), D21.contiguous(), p1[0].contiguous(), valid, K3_RADIUS,
+            K3_DILATION)
+    pk, sk = RD.window_argmax(*args)
+    pp, sp = RD.window_argmax_plain(*args, 1, RD.FLT_MIN)
+    torch.cuda.synchronize()
+    same = 1.0 - (pk != pp).any(-1).float().mean().item()
+    err = (sk - sp).abs().max().item()
+    check(torch.equal(pk, pp), f"K3 f32 positions equal on {same:.6f} of the queries, not all")
+    check(torch.equal(sk.view(torch.int32), sp.view(torch.int32)),
+          f"K3 f32 scores not bitwise equal (max difference {err:.3g})")
+    ms = cuda_ms(lambda: RD.window_argmax(*args))
+    plain_ms = cuda_ms(lambda: RD.window_argmax_plain(*args, 1, RD.FLT_MIN))
+    bf16_args = (D11.to(torch.bfloat16), D21.to(torch.bfloat16)) + args[2:]
+    bf16_ms = cuda_ms(lambda: RD.window_argmax(*bf16_args))
+    nq, nf = h * w, D11.shape[-1]
+    # the f32 products are not tensor-core work: 2 flops a channel and
+    # window position of every query at the float32 rate; f32 descriptors
+    # read once, positions and scores written once
+    k3_bound, k3_by = bound(2 * nf * K3_WINDOW * nq,
+                            4 * h * w * nf + 4 * nq * nf + 8 * nq + nq + 8 * nq + 4 * nq)
+    shape = launch_shape(kernels.launch_info("artdeco_refine_f32_info", K3_RADIUS),
+                         -(-nq // 256), f"{w}x{h}")
+
+    store = KeyframeStore(h, w, tds.K_slam, buffer=16, device=dev)
+    fe = Frontend(types.SimpleNamespace(), tcfg, tds, store, runner, device=dev)
+    reset_launches()
+    for img, info in frames:
+        fe.process_frame(img, info)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    check(launches["k3_f32"] == F32_TRACK_FRAMES - 1 and launches["k3"] == 0,
+          f"f32 tracking launched K3 f32 {launches['k3_f32']}, bf16 {launches['k3']} times "
+          f"over {F32_TRACK_FRAMES - 1} matches")
+    check(fe.lost_number == 0, f"f32 tracking lost {fe.lost_number} frames")
+    summary = (f"launch shape {shape}; stream shape {h}x{w} f{nf} r{K3_RADIUS} d{K3_DILATION} "
+               f"({nq} queries) positions equal {same:.6f}, max score err {err:.3g}, K3 f32 "
+               f"{ms:.4f} ms (bound {k3_bound:.4f} ms by {k3_by}, {k3_bound / ms:.1%} of it; "
+               f"plain {plain_ms:.3f} ms; bf16 K3 on the same inputs {bf16_ms:.4f} ms); "
+               f"tracking {F32_TRACK_FRAMES} frames with refine_dtype null: K3 f32 launches "
+               f"{launches['k3_f32']}, bf16 {launches['k3']}, lost {fe.lost_number}, keyframes "
+               f"{len(store)}")
+    golden = dict(err=err, ms=ms, plain_ms=plain_ms, bound=k3_bound, by=k3_by)
+    return summary, golden, launches["k3_f32"]
+
+
+def side_models_phase(dev, tcfg, tds) -> tuple:
+    """Phase 12 (see the module docstring).  Returns K3 f32's golden numbers
+    and its launches on 12f's tracking run."""
+    frames = [chw(tds[i][0]) for i in range(BOOT_FRAMES)]
+    t0 = time.time()
+    print(f"phase 12a XFeat: {xfeat_phase(dev, frames[0])}", flush=True)
+    print(f"phase 12b DepthAnythingV2: {dav2_phase(dev, frames[0])}", flush=True)
+    print(f"phase 12c bootstrap: {bootstrap_phase(dev, frames)}", flush=True)
+    print(f"phase 12d solvers: {solvers_phase(dev)}", flush=True)
+    print(f"phase 12e knn: {knn_phase(dev)}", flush=True)
+    summary, golden, launches = k3_f32_phase(dev, tcfg, tds)
+    print(f"phase 12f K3 f32: {summary}", flush=True)
+    print(f"phase 12 took {time.time() - t0:.1f} s", flush=True)
+    return golden, launches
+
+
 def main() -> int:
     sys.path.insert(0, ROOT)
     try:
@@ -1586,6 +2018,9 @@ def main() -> int:
     # -- 11. streams from disk ------------------------------------------------------
     disk_launches = disk_stream_phase(dev, tcfg, sys_ref)
 
+    # -- 12. the side models and the keypoint-SfM bootstrap ---------------------------
+    k3f, k3f_launches = side_models_phase(dev, tcfg, tds)
+
     # each path's own counts: the mapper stream (3), tracking (7), the oracle
     # system (8), the model-driven system (10), the streams from disk (11)
     by_phase = {"fwd": {"phase 3": launches["fwd"], "phase 8": sys_launches["fwd"],
@@ -1617,6 +2052,14 @@ def main() -> int:
          "max_abs_err": k3["err"],
          "ms": k3["ms"], "plain_ms": k3["plain_ms"],
          "bound_ms": k3_bound, "bound_by": k3_by, "library_ms": None},
+        {"name": "window_argmax_f32", "route": "cuda",
+         "source": "artdeco_tpu_torch/csrc/refine.cu",
+         "replaces": "artdeco_tpu/ops/refine_pallas.py:30",
+         "f32_path": "artdeco_tpu/ops/matching.py:325",
+         "launches": k3f_launches, "launches_by_phase": {"phase 12f": k3f_launches},
+         "max_abs_err": k3f["err"],
+         "ms": k3f["ms"], "plain_ms": k3f["plain_ms"],
+         "bound_ms": k3f["bound"], "bound_by": k3f["by"], "library_ms": None},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

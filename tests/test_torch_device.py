@@ -1,9 +1,10 @@
 """The port's entry points run on the card unless the caller asks for the CPU.
 
 Each of ``MapperStage``, ``SceneModel``, ``Frontend``, ``OracleRunner``,
-``KeyframeStore``, ``System``, ``Backend``, ``FactorGraph`` and
-``Mast3rRunner`` takes
-``device=None`` and resolves it through
+``KeyframeStore``, ``System``, ``Backend``, ``FactorGraph``,
+``Mast3rRunner``, ``FeatureDetector``, ``PoseInitializer``, XFeat's
+``make_detector``, ``make_dav2_model_fn`` and ``knn_mean_sq_dist`` (of an
+array) takes ``device=None`` and resolves it through
 ``device.require_cuda``: with no CUDA device present and no device passed,
 it raises that function's error (there is no CPU fallback); a device that
 is passed is used as it is.
@@ -12,14 +13,20 @@ is passed is used as it is.
 import os
 import types
 
+import numpy as np
 import pytest
 import torch
 
 from artdeco_tpu_torch.dataio.dataset import SyntheticDataset
 from artdeco_tpu_torch.mapper.scene_model import SceneModel
 from artdeco_tpu_torch.models.mast3r import tiny_config
+from artdeco_tpu_torch.models.depth_anything import make_dav2_model_fn
 from artdeco_tpu_torch.models.mast3r_infer import Mast3rRunner
 from artdeco_tpu_torch.models.oracle import OracleRunner
+from artdeco_tpu_torch.models.xfeat import make_detector
+from artdeco_tpu_torch.ops.knn import knn_mean_sq_dist
+from artdeco_tpu_torch.poses.feature_detector import FeatureDetector
+from artdeco_tpu_torch.poses.pose_initializer import PoseInitializer
 from artdeco_tpu_torch.runtime.system import MapperStage, System
 from artdeco_tpu_torch.utils.config import load_config
 from artdeco_tpu_torch.vslam.backend import Backend
@@ -55,11 +62,23 @@ def _entry_points():
         "FactorGraph": lambda **kw: FactorGraph(cfg, runner, store, ds.K_slam,
                                                 (ds.H_slam, ds.W_slam), **kw),
         "Mast3rRunner": lambda **kw: Mast3rRunner.create(tiny_config(), **kw),
+        "FeatureDetector": lambda **kw: FeatureDetector(num_kpts=8, **kw),
+        "PoseInitializer": lambda **kw: PoseInitializer(100.0, (32.0, 24.0), **kw),
+        # the factories: the device their model's weights lie on
+        "make_detector": lambda **kw: _on(make_detector(top_k=8, **kw)),
+        "make_dav2_model_fn": lambda **kw: _on(make_dav2_model_fn(encoder="vits", **kw)),
+        "knn_mean_sq_dist": lambda **kw: types.SimpleNamespace(
+            device=knn_mean_sq_dist(np.zeros((8, 3), np.float32), **kw).device),
     }
 
 
+def _on(fn):
+    return types.SimpleNamespace(device=next(fn.model.parameters()).device)
+
+
 ENTRY_POINTS = ["MapperStage", "SceneModel", "Frontend", "OracleRunner", "KeyframeStore",
-                "System", "Backend", "FactorGraph", "Mast3rRunner"]
+                "System", "Backend", "FactorGraph", "Mast3rRunner", "FeatureDetector",
+                "PoseInitializer", "make_detector", "make_dav2_model_fn", "knn_mean_sq_dist"]
 
 
 @pytest.mark.parametrize("name", ENTRY_POINTS)

@@ -23,8 +23,12 @@
   product of two bf16 values is exact in f32, so an FMA rounds as the
   plain version's multiply and add do) is checked here on bf16 values as
   far as 2^-20 and 2^20 apart.
-* on the card (``cuda`` marker): K3 against its plain version, exactly, at
-  every radius it is built for; other radii raise.
+* the f32 search (``compute_dtype`` None): K3's f32 instance (its plain
+  version here) against JAX's ``_refine_single``; equal positions on the
+  random cases, and on an oracle pair >= 99.9 % with near-ties checked.
+* on the card (``cuda`` marker): K3 and its f32 instance against their
+  plain version, exactly, at every radius K3 is built for; other radii
+  raise.
 """
 
 import jax
@@ -174,10 +178,69 @@ def test_bf16_rounding_matches_xla():
     np.testing.assert_array_equal(n(a), np.asarray(b))
 
 
+jrefine_f32 = jax.jit(jm.refine_matches, static_argnames=("radius", "dilation_max"))
+
+
+def f32_scores(D11, D21, p1, radius, d):
+    """Float64 scores of every query's window at dilation ``d`` around
+    ``p1``: (n, span * span), zeros outside the image."""
+    h, w, _ = D11.shape
+    span = 2 * radius + 1
+    out = np.zeros((len(p1), span * span))
+    for i in range(span):
+        for j in range(span):
+            uu = p1[:, 0] - radius * d + i * d
+            vv = p1[:, 1] - radius * d + j * d
+            inside = (uu >= 0) & (uu < w) & (vv >= 0) & (vv < h)
+            s = np.sum(D11[vv.clip(0, h - 1), uu.clip(0, w - 1)].astype(np.float64)
+                       * D21.astype(np.float64), axis=-1)
+            out[:, i * span + j] = np.where(inside, s, 0.0)
+    return out
+
+
 def test_refine_f32_path_is_not_ported():
-    D11, D21, p1, _ = CASES["random"]
-    with pytest.raises(NotImplementedError):
-        M.refine_matches(t(D11)[None], t(D21)[None], t(p1)[None], compute_dtype=None)
+    """The f32 search (``compute_dtype`` None) was once refused; it is now
+    K3's f32 instance.  Against JAX's ``_refine_single`` on the random
+    cases (``valid`` given, and ignored by both): positions equal on every
+    query (measured: all 560 of each case)."""
+    for case in ("random", "random-colliding"):
+        D11, D21, p1, valid = CASES[case]
+        jp = jrefine_f32(jnp.asarray(D11)[None], jnp.asarray(D21)[None], jnp.asarray(p1)[None],
+                         radius=4, dilation_max=3, compute_dtype=None)
+        tp = M.refine_matches(t(D11)[None], t(D21)[None], t(p1)[None], radius=4,
+                              dilation_max=3, compute_dtype=None, valid=t(valid)[None])
+        np.testing.assert_array_equal(n(tp), n(jp))
+
+
+def test_refine_f32_matches_jax_on_the_oracle_pair():
+    """``refine_matches(compute_dtype=None)`` against JAX's ``_refine_single``
+    on a 48x64 oracle pair at the stream's settings (radius 4, dilations
+    5..1), every pixel starting at its own position.  The sums of 24
+    float32 products run in channel order here and in XLA's order there,
+    so a pick between two offsets whose scores differ by a few ulps may
+    differ: positions equal on >= 99.9 % of the queries (measured: all
+    3072), and where they differ the two picks score within 1e-5 of each
+    other in float64 (a near-tie)."""
+    X11, X21, D11, D21 = oracle_pair(48, 64, shift=3)
+    h, w = 48, 64
+    vv, uu = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+    p1 = np.stack([uu.ravel(), vv.ravel()], -1).astype(np.int32)
+    d11, d21 = D11[0], D21[0].reshape(h * w, -1)
+    jp = n(jrefine_f32(jnp.asarray(d11)[None], jnp.asarray(d21)[None], jnp.asarray(p1)[None],
+                       radius=4, dilation_max=5, compute_dtype=None))[0]
+    before = RD.window_argmax.launches_f32
+    tp = n(M.refine_matches(t(d11)[None], t(d21)[None], t(p1)[None], radius=4, dilation_max=5,
+                            compute_dtype=None))[0]
+    assert RD.window_argmax.launches_f32 == before      # the CPU runs the plain version
+    same = np.all(tp == jp, axis=-1)
+    assert same.mean() >= 0.999, same.mean()
+    if not same.all():
+        lin = lambda q: q[:, 1] * w + q[:, 0]                       # noqa: E731
+        st = np.sum(d11.reshape(-1, 24)[lin(tp[~same])].astype(np.float64)
+                    * d21[~same], axis=-1)
+        sj = np.sum(d11.reshape(-1, 24)[lin(jp[~same])].astype(np.float64)
+                    * d21[~same], axis=-1)
+        np.testing.assert_allclose(st, sj, atol=1e-5)
 
 
 @pytest.mark.parametrize("with_init", [False, True])
@@ -271,6 +334,23 @@ def test_k3_matches_plain_version_on_card(cuda_device, radius):
         pp, sp = RD.window_argmax_plain(*args, radius, 5, 1, RD.FLT_MIN)
         torch.cuda.synchronize()
         assert RD.window_argmax.launches == before + 1
+        np.testing.assert_array_equal(n(pk), n(pp))
+        np.testing.assert_array_equal(n(sk).view(np.uint32), n(sp).view(np.uint32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("radius", RD.RADII)
+def test_k3_f32_matches_plain_version_on_card(cuda_device, radius):
+    """K3's f32 instance at each radius, bitwise equal to its plain
+    version (each product rounded before it is added, in channel order)."""
+    for case in ("random-colliding", "oracle"):
+        D11, D21, p1, _ = CASES[case]
+        args = [t(D11), t(D21), t(p1, torch.int32), torch.ones(len(p1), dtype=torch.bool)]
+        before = RD.window_argmax.launches_f32
+        pk, sk = RD.window_argmax(*[a.to(cuda_device) for a in args], radius, 5)
+        pp, sp = RD.window_argmax_plain(*args, radius, 5, 1, RD.FLT_MIN)
+        torch.cuda.synchronize()
+        assert RD.window_argmax.launches_f32 == before + 1
         np.testing.assert_array_equal(n(pk), n(pp))
         np.testing.assert_array_equal(n(sk).view(np.uint32), n(sp).view(np.uint32))
 

@@ -119,7 +119,7 @@ def test_mapper_slice_matches_jax():
                                atol=1e-3)
 
 
-PORT_MODULES = (   # the mapper's, tracking's, the backend's, the models' and the data path's
+PORT_MODULES = (   # the mapper, tracking, the backend, the models, the data path, the bootstrap
     "mapper.scene_model", "runtime.system", "ops.splat.composite", "kernels",
     "geometry.lie", "geometry.projection", "geometry.robust", "geometry.uncertainty",
     "ops.matching", "ops.refine_dense", "models.oracle", "vslam.frame", "vslam.keyframes",
@@ -129,6 +129,10 @@ PORT_MODULES = (   # the mapper's, tracking's, the backend's, the models' and th
     "models.mast3r", "models.mast3r_infer", "models.pi3", "vslam.accurate_lc", "eval.lpips",
     "dataio.camera", "dataio.resample", "dataio.image_io", "dataio.dataset",
     "runtime.native_loader", "eval_scenes",
+    # the side models and the keypoint-SfM bootstrap
+    "ops.knn", "poses", "poses.feature_detector", "poses.guided_mvs", "poses.matcher",
+    "poses.mini_ba", "poses.pnp", "poses.pose_initializer", "poses.ransac",
+    "poses.triangulator", "models.xfeat", "models.depth_anything", "mapper.mono_depth",
 )
 
 
@@ -156,4 +160,4 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.startswith("ok"), res.stdout
-    assert int(res.stdout.split()[1]) >= 41
+    assert int(res.stdout.split()[1]) >= 74

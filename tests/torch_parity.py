@@ -127,3 +127,17 @@ def jax_backend_state(bk) -> dict:
             sim={i: dict(r) for i, r in db.sim_graph.sim.items()},
             pending=None if db._pending is None else [a(x) for x in db._pending]),
     )
+
+
+def assert_same_keypoints(ka, sa, kb, tol: float) -> int:
+    """Two detectors' keypoints (P, 2) are the same set, and where the rows
+    differ in order, each row of ``kb`` sits where ``ka`` has a score within
+    ``tol`` of its own (a swap of near-tied scores ``sa``).  Returns the
+    number of rows out of place."""
+    ka, kb, sa = np.asarray(ka), np.asarray(kb), np.asarray(sa)
+    assert sorted(map(tuple, ka.tolist())) == sorted(map(tuple, kb.tolist()))
+    pos = {tuple(k): i for i, k in enumerate(ka.tolist())}
+    moved = [(i, pos[tuple(k)]) for i, k in enumerate(kb.tolist()) if pos[tuple(k)] != i]
+    for i, j in moved:
+        assert abs(float(sa[i]) - float(sa[j])) <= tol, (i, j, sa[i], sa[j])
+    return len(moved)
