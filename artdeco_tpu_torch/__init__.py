@@ -16,7 +16,9 @@ tracking frontend with the matching cascade and the refine kernel
 ``vslam/global_opt.py``, ``vslam/retrieval.py``), and the online mapper
 (``mapper/``) with its rasterizer (``ops/splat/``), the tile compositor as
 hand-written CUDA kernels (``csrc/composite.cu``) and LPIPS
-(``eval/lpips.py``).
+(``eval/lpips.py``); and the multi-device path (``parallel/``:
+keyframe-data-parallel mapper training, row-strip renders, the
+edge-sharded GN, ``--n_devices``), one controller over a mesh of devices.
 """
 
 __version__ = "0.1.0"

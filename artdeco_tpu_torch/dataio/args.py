@@ -119,10 +119,10 @@ def get_args(argv=None):
     p.add_argument("--device_backend", default="tpu:0")
     p.add_argument("--device_mapper", default="tpu:0")
     p.add_argument("--device_shared", default="cpu")
-    # multi-chip: dp mesh over the first N local devices (mapper trains N
-    # keyframes/iteration via shard_map + psum; row-strip sharded renders) —
-    # the TPU-native analog of the reference's per-stage --device_* placement
-    # (args.py:156-159)
+    # multi-device: a dp mesh over the first N cards (the mapper trains N
+    # keyframes an iteration, row-strip sharded renders, edge-sharded GN;
+    # parallel/), the counterpart of the reference's per-stage --device_*
+    # placement (args.py:156-159)
     p.add_argument("--n_devices", type=int, default=1)
     p.add_argument("--debug", action="store_true")
     p.add_argument("--viewer_mode", choices=["local", "server", "web", "none"],

@@ -14,8 +14,12 @@ background sampling) is ``np.random.RandomState(seed)`` consumed exactly as
 the JAX package consumes it; densification draws its uniforms from a noise
 source it is given (a ``torch.Generator`` on the device by default).
 
-Left out, being TPU-only machinery: AOT prewarm and growth hooks, the
-visible-set compaction budget, the multi-chip paths and the jit wrappers.
+With a mesh (``enable_mesh``, ``parallel/``), each training iteration
+trains one keyframe per slot through the data-parallel step
+(``parallel/dp.py``) and full-frame renders are sharded by row strips
+(``parallel/splats.py``); densify, weed and save stay on the model's
+device.  Left out, being TPU-only machinery: AOT prewarm and growth hooks,
+the visible-set compaction budget and the jit wrappers.
 The training bucket ``_train_len`` stays: the slab length it selects
 enters the loss through the mean scaling regulariser.  Loop closure moves
 the keyframe poses (``set_keyframe_poses_masked``) and the Gaussians with
@@ -132,6 +136,20 @@ def render_core(slab: G.GaussianSlab, gfeat: torch.Tensor, mlp: MlpCov,
         sh_degree=sh_degree, render_mode="RGB+D", eps2d=eps2d,
         valid_mask=selection,
     )
+    visibility = (torch.amax(meta.radii, dim=-1) > 0) & selection
+    out = finish_render(render, alpha, visibility, slab.cls_id, exposure, bg,
+                        cluster_capacity)
+    out["scale"] = scale_eff
+    return out
+
+
+def finish_render(render: torch.Tensor, alpha: torch.Tensor, visibility: torch.Tensor,
+                  cls_id: torch.Tensor, exposure: torch.Tensor, bg: torch.Tensor,
+                  cluster_capacity: int) -> dict:
+    """The rasterizer's (H, W, 4) RGB+D render and (H, W, 1) alpha with
+    per-Gaussian ``visibility`` -> render_core's dict: the background, the
+    exposure affine, the clamp, the inverse depth and the per-cluster
+    visibility."""
     rgb = render[..., :3].permute(2, 0, 1)
     depth = render[..., 3:4].permute(2, 0, 1)
     a = alpha.permute(2, 0, 1)
@@ -145,18 +163,118 @@ def render_core(slab: G.GaussianSlab, gfeat: torch.Tensor, mlp: MlpCov,
     rgb = (exposure[:3, :3] @ rgb.reshape(3, -1) + exposure[:3, 3:4]).reshape(3, h, w)
     rgb = torch.clamp(rgb, 0.0, 1.0)
 
-    visibility = (torch.amax(meta.radii, dim=-1) > 0) & selection
-    cls = torch.clamp(slab.cls_id.long(), 0, cluster_capacity - 1)
+    cls = torch.clamp(cls_id.long(), 0, cluster_capacity - 1)
     global_vis = torch.zeros(cluster_capacity, dtype=torch.int32,
                              device=cls.device).scatter_reduce(
         0, cls, visibility.to(torch.int32), "amax") > 0
     return dict(render=rgb, invdepth=invdepth, alpha=a, visibility=visibility,
-                global_visibility=global_vis, scale=scale_eff, depth=depth)
+                global_visibility=global_vis, depth=depth)
 
 
 # ---------------------------------------------------------------------------
 # One training iteration
 # ---------------------------------------------------------------------------
+
+GRAD_NAMES = (*G.TRAINED_KEYS, "gfeat", *("mlp." + k for k in MLP_KEYS), "r", "t", "e")
+
+
+def loss_and_grads(slab: G.GaussianSlab, gfeat_val: torch.Tensor, mlp: MlpCov,
+                   r0: torch.Tensor, t0: torch.Tensor, e0: torch.Tensor,
+                   dlw: torch.Tensor, gt: torch.Tensor, mono: torch.Tensor,
+                   K_lvl: torch.Tensor, bg: torch.Tensor, width: int, height: int,
+                   is_important: bool, cfg: MapperConfig):
+    """One view's training loss and its gradients.
+
+    r0, t0, e0 are the keyframe's pose and exposure rows, ``dlw`` its
+    depth-loss weight, gt (3, h, w) and mono (1, h, w) its image and mono
+    inverse depth at the training level.  Returns (loss, grads by
+    ``GRAD_NAMES``, visibility (C,), global visibility (Cg,), the loss
+    terms (l1, ssim, depth))."""
+    leaves = {k: getattr(slab, k).detach().requires_grad_() for k in G.TRAINED_KEYS}
+    g_val = gfeat_val.detach().requires_grad_()
+    mlp_t = MlpCov(**{k: getattr(mlp, k).detach().requires_grad_() for k in MLP_KEYS})
+    r0, t0, e0 = (x.detach().clone().requires_grad_() for x in (r0, t0, e0))
+
+    viewmat = KF.compose_Rt(KF.sixd_to_mtx(r0), t0)
+    pkg = render_core(
+        dataclasses.replace(slab, **leaves), g_val, mlp_t, viewmat, e0, K_lvl,
+        width, height, bg, cfg.sh_degree, cfg.low_pass_filter_eps,
+        cfg.cluster_capacity,
+    )
+    image, invdepth = pkg["render"], pkg["invdepth"]
+    rdk = losses.radial_decay_kernel(height, width, cfg.rad_decay,
+                                      device=image.device)[None]
+    if not is_important:
+        # common frames: mask pixels with large errors
+        err = rdk * torch.abs(image - gt)
+        bad = (err[0] > 0.2) | (err[1] > 0.2) | (err[2] > 0.2)
+        m = (~bad)[None].to(image.dtype)
+        image, gt, invdepth, mono = image * m, gt * m, invdepth * m, mono * m
+    l1 = torch.mean(rdk * torch.abs(image - gt))
+    ssim_l = 1.0 - fused_ssim(image, gt)
+    depth_l = torch.mean(rdk * torch.abs(invdepth - mono))
+    scaling_reg = torch.mean(torch.prod(pkg["scale"], dim=1))
+    loss = (cfg.lambda_dssim * ssim_l + (1.0 - cfg.lambda_dssim) * l1
+            + dlw * depth_l + cfg.scaling_reg_factor * scaling_reg)
+
+    inputs = [*leaves.values(), g_val, *(getattr(mlp_t, k) for k in MLP_KEYS),
+              r0, t0, e0]
+    g = torch.autograd.grad(loss, inputs, allow_unused=True, materialize_grads=True)
+    return (loss.detach(), dict(zip(GRAD_NAMES, g)), pkg["visibility"],
+            pkg["global_visibility"], (l1.detach(), ssim_l.detach(), depth_l.detach()))
+
+
+@torch.no_grad()
+def keyframe_row_steps(pool: KF.KeyframePool, kf_idx: int, grads: dict,
+                       is_test: bool) -> dict:
+    """The keyframe's pose and exposure Adam steps (betas 0.8/0.99; a test
+    frame's exposure lr is 0): {"r" | "t" | "e": (new row, AdamState)}.
+    Reads the pool and writes nothing."""
+    lr_pose = pool.lr_pose[kf_idx]
+    lr_expo = 0.0 if is_test else pool.lr_exposure[kf_idx]
+    out = {}
+    for name, param, st, lr in (("r", pool.r_w2c, pool.opt_r, lr_pose),
+                                ("t", pool.t_w2c, pool.opt_t, lr_pose),
+                                ("e", pool.exposure, pool.opt_e, lr_expo)):
+        out[name] = adam.adam_update_basic(
+            param[kf_idx], grads[name],
+            adam.AdamState(st.exp_avg[kf_idx], st.exp_avg_sq[kf_idx]),
+            lr, b1=0.8, b2=0.99,
+        )
+    return out
+
+
+@torch.no_grad()
+def scene_update(slab: G.GaussianSlab, opt: G.SlabOptState, gfeat: GlobalFeats,
+                 mlp: MlpCov, mlp_opt: dict, mlp_lr: torch.Tensor, grads: dict,
+                 vis: torch.Tensor, gvis: torch.Tensor, cfg: MapperConfig):
+    """The scene's Adam step from ``grads``: visibility-masked slab Adam with
+    the xyz lr decay, cluster-masked global features (per-row lr, no decay),
+    dense ``mlp_cov`` Adam and its lr decay.  Returns the new (slab, opt,
+    gfeat, mlp, mlp_opt, mlp_lr)."""
+    lrs = dict(f_dc=cfg.feature_lr, f_rest=cfg.feature_lr / 20.0,
+               scaling=cfg.scaling_lr, rotation=cfg.rotation_lr,
+               opacity=cfg.opacity_lr, local_feat=cfg.feat_lr)
+    slab, opt = G.apply_adam(
+        slab, opt, {k: grads[k] for k in G.TRAINED_KEYS}, vis, lrs,
+        cfg.adam_b1, cfg.adam_b2, cfg.adam_eps,
+    )
+    slab = G.decay_xyz_lr(slab, vis, cfg.position_lr_decay,
+                          cfg.position_lr_init * 0.1)
+    gv, g_opt = adam.adam_update_masked(
+        gfeat.val, grads["gfeat"], gfeat.opt, gfeat.lr, gvis,
+        b1=cfg.adam_b1, b2=cfg.adam_b2, eps=cfg.adam_eps,
+    )
+    gfeat = GlobalFeats(val=gv, lr=gfeat.lr, opt=g_opt)
+    new_mlp, new_mlp_opt = {}, {}
+    for k in MLP_KEYS:
+        new_mlp[k], new_mlp_opt[k] = adam.adam_update_basic(
+            getattr(mlp, k), grads["mlp." + k], mlp_opt[k], mlp_lr,
+            b1=cfg.adam_b1, b2=cfg.adam_b2, eps=cfg.adam_eps,
+        )
+    mlp_lr = torch.clamp_min(mlp_lr * cfg.mlp_cov_lr_decay, cfg.mlp_cov_lr_init * 0.1)
+    return slab, opt, gfeat, MlpCov(**new_mlp), new_mlp_opt, mlp_lr
+
 
 def _train_iter(
     slab: G.GaussianSlab,
@@ -186,93 +304,25 @@ def _train_iter(
     updates are skipped, which is what the JAX package's all-False masks
     compute.  ``grads`` holds the loss gradients by name.
     """
-    leaves = {k: getattr(slab, k).detach().requires_grad_() for k in G.TRAINED_KEYS}
-    g_val = gfeat.val.detach().requires_grad_()
-    mlp_t = MlpCov(**{k: getattr(mlp, k).detach().requires_grad_() for k in MLP_KEYS})
-    r0 = pool.r_w2c[kf_idx].clone().requires_grad_()
-    t0 = pool.t_w2c[kf_idx].clone().requires_grad_()
-    e0 = pool.exposure[kf_idx].clone().requires_grad_()
-
-    viewmat = KF.compose_Rt(KF.sixd_to_mtx(r0), t0)
-    pkg = render_core(
-        dataclasses.replace(slab, **leaves), g_val, mlp_t, viewmat, e0, K_lvl,
-        width, height, bg, cfg.sh_degree, cfg.low_pass_filter_eps,
-        cfg.cluster_capacity,
-    )
-    image, invdepth = pkg["render"], pkg["invdepth"]
-    rdk = losses.radial_decay_kernel(height, width, cfg.rad_decay,
-                                      device=image.device)[None]
-    gt, mono = gt_image, mono_idepth
-    if not is_important:
-        # common frames: mask pixels with large errors
-        err = rdk * torch.abs(image - gt)
-        bad = (err[0] > 0.2) | (err[1] > 0.2) | (err[2] > 0.2)
-        m = (~bad)[None].to(image.dtype)
-        image, gt, invdepth, mono = image * m, gt * m, invdepth * m, mono * m
-    l1 = torch.mean(rdk * torch.abs(image - gt))
-    ssim_l = 1.0 - fused_ssim(image, gt)
-    depth_l = torch.mean(rdk * torch.abs(invdepth - mono))
-    scaling_reg = torch.mean(torch.prod(pkg["scale"], dim=1))
-    dlw = pool.depth_loss_weight[kf_idx]
-    loss = (cfg.lambda_dssim * ssim_l + (1.0 - cfg.lambda_dssim) * l1
-            + dlw * depth_l + cfg.scaling_reg_factor * scaling_reg)
-
-    inputs = [*leaves.values(), g_val, *(getattr(mlp_t, k) for k in MLP_KEYS),
-              r0, t0, e0]
-    g = torch.autograd.grad(loss, inputs, allow_unused=True, materialize_grads=True)
-    names = [*G.TRAINED_KEYS, "gfeat", *("mlp." + k for k in MLP_KEYS),
-             "r", "t", "e"]
-    grads = dict(zip(names, g))
-    vis = pkg["visibility"]
-    gvis = pkg["global_visibility"]
+    loss, grads, vis, gvis, (l1, ssim_l, depth_l) = loss_and_grads(
+        slab, gfeat.val, mlp, pool.r_w2c[kf_idx], pool.t_w2c[kf_idx],
+        pool.exposure[kf_idx], pool.depth_loss_weight[kf_idx], gt_image, mono_idepth,
+        K_lvl, bg, width, height, is_important, cfg)
 
     with torch.no_grad():
-        # ---- keyframe pose/exposure Adam (betas 0.8/0.99) ----------------
-        lr_pose = pool.lr_pose[kf_idx]
-        lr_expo = 0.0 if is_test else pool.lr_exposure[kf_idx]
-        for name, param, st, lr in (("r", pool.r_w2c, pool.opt_r, lr_pose),
-                                    ("t", pool.t_w2c, pool.opt_t, lr_pose),
-                                    ("e", pool.exposure, pool.opt_e, lr_expo)):
-            p, s = adam.adam_update_basic(
-                param[kf_idx], grads[name],
-                adam.AdamState(st.exp_avg[kf_idx], st.exp_avg_sq[kf_idx]),
-                lr, b1=0.8, b2=0.99,
-            )
+        for (param, st), (p, s) in zip(
+                ((pool.r_w2c, pool.opt_r), (pool.t_w2c, pool.opt_t),
+                 (pool.exposure, pool.opt_e)),
+                keyframe_row_steps(pool, kf_idx, grads, is_test).values()):
             param[kf_idx] = p
             st.exp_avg[kf_idx] = s.exp_avg
             st.exp_avg_sq[kf_idx] = s.exp_avg_sq
         pool.depth_loss_weight[kf_idx] *= cfg.depth_loss_weight_decay
-
         if not is_test:
-            # ---- scene Adam (visibility-masked) ---------------------------
-            lrs = dict(f_dc=cfg.feature_lr, f_rest=cfg.feature_lr / 20.0,
-                       scaling=cfg.scaling_lr, rotation=cfg.rotation_lr,
-                       opacity=cfg.opacity_lr, local_feat=cfg.feat_lr)
-            slab, opt = G.apply_adam(
-                slab, opt, {k: grads[k] for k in G.TRAINED_KEYS}, vis, lrs,
-                cfg.adam_b1, cfg.adam_b2, cfg.adam_eps,
-            )
-            slab = G.decay_xyz_lr(slab, vis, cfg.position_lr_decay,
-                                  cfg.position_lr_init * 0.1)
-            # global feats: masked by cluster visibility, per-row lr, no decay
-            gv, g_opt = adam.adam_update_masked(
-                gfeat.val, grads["gfeat"], gfeat.opt, gfeat.lr, gvis,
-                b1=cfg.adam_b1, b2=cfg.adam_b2, eps=cfg.adam_eps,
-            )
-            gfeat = GlobalFeats(val=gv, lr=gfeat.lr, opt=g_opt)
-            # mlp_cov: dense Adam + lr decay
-            new_mlp, new_mlp_opt = {}, {}
-            for k in MLP_KEYS:
-                new_mlp[k], new_mlp_opt[k] = adam.adam_update_basic(
-                    getattr(mlp, k), grads["mlp." + k], mlp_opt[k], mlp_lr,
-                    b1=cfg.adam_b1, b2=cfg.adam_b2, eps=cfg.adam_eps,
-                )
-            mlp, mlp_opt = MlpCov(**new_mlp), new_mlp_opt
-            mlp_lr = torch.clamp_min(mlp_lr * cfg.mlp_cov_lr_decay,
-                                     cfg.mlp_cov_lr_init * 0.1)
+            slab, opt, gfeat, mlp, mlp_opt, mlp_lr = scene_update(
+                slab, opt, gfeat, mlp, mlp_opt, mlp_lr, grads, vis, gvis, cfg)
 
-    metrics = dict(loss=loss.detach(), l1=l1.detach(), ssim=ssim_l.detach(),
-                   depth=depth_l.detach(), n_vis=torch.sum(vis))
+    metrics = dict(loss=loss, l1=l1, ssim=ssim_l, depth=depth_l, n_vis=torch.sum(vis))
     return slab, opt, gfeat, mlp, mlp_opt, mlp_lr, pool, metrics, grads
 
 
@@ -495,9 +545,16 @@ class SceneModel:
         self._has_gaussians = False
         self.inference_mode = False
         # calls that launch the compositor: one forward each, and a backward
-        # for each training step
+        # for each training step; a dp step and a sharded render launch
+        # one of each per slot
         self.n_train_steps = 0
         self.n_renders = 0
+        self.n_dp_steps = 0
+        self.n_sharded_renders = 0
+        self._mesh = None                # the dp mesh (enable_mesh)
+        self._dp_steps: dict = {}        # (w, h, is_important) -> dp train step
+        self._sharded_render = None
+        self._sharded_core_renders: dict = {}  # (w, h) -> sharded render_core
 
     def load_state(self, state) -> None:
         """Adopt a carried-over state (``state_io.scene_state_from_numpy``)."""
@@ -564,20 +621,114 @@ class SceneModel:
         self.pool.r_w2c.copy_(torch.where(m[:, None, None], Rt[:, :3, :2], self.pool.r_w2c))
         self.pool.t_w2c.copy_(torch.where(m[:, None], Rt[:, :3, 3], self.pool.t_w2c))
 
+    # -- the mesh --------------------------------------------------------
+    def enable_mesh(self, mesh) -> None:
+        """Train keyframe-data-parallel over ``mesh`` (``parallel/mesh.Mesh``,
+        one axis "dp", its first device the model's): each optimization
+        iteration trains ``mesh.size`` keyframes, one a slot, against the
+        replicated scene (``parallel/dp.py``), and full-frame renders whose
+        height is a multiple of 16 slots are sharded by row strips
+        (``parallel/splats.py``).  ``None`` turns the mesh off."""
+        if mesh is not None and mesh.home != self.device:
+            raise ValueError(f"the mesh's first device {mesh.home} is not the "
+                             f"scene's {self.device}")
+        self._mesh = mesh
+        self._dp_steps = {}
+        self._sharded_render = None
+        self._sharded_core_renders = {}
+
+    @torch.no_grad()
+    def render_sharded(self, keyframe_id: int):
+        """The raw splats (no LOD fade or ``mlp_cov`` modulation) of the
+        active Gaussians at full resolution, sharded by row strips over the
+        mesh: (render (H, W, 4) RGB+D, alpha (H, W, 1)).  The JAX package
+        masks rows by index below the active count; this masks by
+        ``slab.active``, which is the same set until a prune leaves gaps."""
+        from artdeco_tpu_torch.parallel.splats import make_row_sharded_render
+
+        if self._mesh is None:
+            raise ValueError("render_sharded needs a mesh (enable_mesh)")
+        if self._sharded_render is None:
+            self._sharded_render = make_row_sharded_render(
+                self._mesh, self.width, self.height, self.cfg.sh_degree,
+                eps2d=self.cfg.low_pass_filter_eps, axis="dp")
+        s = self.slab
+        self.n_sharded_renders += 1
+        return self._sharded_render(
+            s.xyz, s.rotation, torch.exp(s.scaling), torch.sigmoid(s.opacity[:, 0]),
+            torch.cat([s.f_dc, s.f_rest], dim=1), KF.get_Rt(self.pool, keyframe_id),
+            self._K_at_lvl(0), s.active)
+
+    def _dp_step_for(self, w: int, h: int, is_important: bool):
+        from artdeco_tpu_torch.parallel.dp import make_dp_train_step
+
+        key = (w, h, is_important)
+        if key not in self._dp_steps:
+            self._dp_steps[key] = make_dp_train_step(self._mesh, self.cfg, w, h,
+                                                     is_important=is_important)
+        return self._dp_steps[key]
+
+    def _optimization_step_dp(self, is_important: bool = True) -> dict:
+        """One dp iteration: ``mesh.size`` keyframes of one pyramid level,
+        trained at once.  The host RandomState is consumed as the JAX
+        package consumes it: the branch draw (and the replay draw), the
+        co-sampled keyframes, then the (B, 3) backgrounds."""
+        B = self._mesh.size
+        first = self.get_training_id() if (
+            self._np_rng.rand() > self.cfg.use_last_frame_proba
+            or self.last_trained_id == -1
+        ) else len(self.keyframes) - 1
+        lvl = self.keyframes[first].pyr_lvl
+        same_lvl = [i for i in (self._active_ids or range(len(self.keyframes)))
+                    if self.keyframes[i].pyr_lvl == lvl]
+        # without replacement where there are enough keyframes (a duplicate
+        # averages into its row, leaving a slot's work wasted)
+        others = [i for i in same_lvl if i != first]
+        if len(others) >= B - 1:
+            sel = self._np_rng.choice(len(others), B - 1, replace=False)
+            ids = [first] + [others[int(j)] for j in sel]
+        else:
+            ids = [first] + [same_lvl[self._np_rng.randint(0, len(same_lvl))]
+                             for _ in range(B - 1)]
+        s = 2 ** lvl
+        gts, monos = zip(*[self._device_kf(i, lvl) for i in ids])
+        bg = torch.as_tensor(self._np_rng.rand(B, 3).astype(np.float32), device=self.device)
+        step = self._dp_step_for(self.width // s, self.height // s, is_important)
+        # the whole slab, as the JAX package's dp step trains it: the
+        # scaling regulariser's mean runs over the rows it is given, so the
+        # training prefix would change the loss the parity test holds
+        (self.slab, self.opt, self.gfeat, self.mlp, self.mlp_opt, self.mlp_lr,
+         self.pool, metrics) = step(
+            self.slab, self.opt, self.gfeat, self.mlp, self.mlp_opt, self.mlp_lr,
+            self.pool, ids, gts, monos, self._K_at_lvl(lvl), bg,
+            is_test=[bool(self.keyframes[i].is_test) for i in ids])
+        self.n_dp_steps += 1
+        self.last_trained_id = ids[0]
+        return metrics
+
     # -- rendering -------------------------------------------------------
     @torch.no_grad()
     def render_from_id(self, keyframe_id: int, pyr_lvl: int = 0, bg=None) -> dict:
         if bg is None:
             bg = torch.zeros(3, device=self.device)
         s = 2 ** pyr_lvl
+        w, h = self.width // s, self.height // s
+        args = (self.slab.prefix(self._train_len), self.gfeat.val, self.mlp,
+                KF.get_Rt(self.pool, keyframe_id), self.pool.exposure[keyframe_id],
+                self._K_at_lvl(pyr_lvl))
+        bg = torch.as_tensor(bg, device=self.device)
+        if self._mesh is not None and h % (16 * self._mesh.size) == 0:
+            from artdeco_tpu_torch.parallel.splats import make_row_sharded_render_core
+
+            if (w, h) not in self._sharded_core_renders:
+                self._sharded_core_renders[w, h] = make_row_sharded_render_core(
+                    self._mesh, w, h, self.cfg.sh_degree, self.cfg.low_pass_filter_eps,
+                    self.cfg.cluster_capacity, axis="dp")
+            self.n_sharded_renders += 1
+            return self._sharded_core_renders[w, h](*args, bg)
         self.n_renders += 1
-        return render_core(
-            self.slab.prefix(self._train_len), self.gfeat.val, self.mlp,
-            KF.get_Rt(self.pool, keyframe_id), self.pool.exposure[keyframe_id],
-            self._K_at_lvl(pyr_lvl), self.width // s, self.height // s,
-            torch.as_tensor(bg, device=self.device), self.cfg.sh_degree,
-            self.cfg.low_pass_filter_eps, self.cfg.cluster_capacity,
-        )
+        return render_core(*args, w, h, bg, self.cfg.sh_degree,
+                           self.cfg.low_pass_filter_eps, self.cfg.cluster_capacity)
 
     # -- training --------------------------------------------------------
     def get_training_id(self) -> int:
@@ -633,8 +784,12 @@ class SceneModel:
         """A burst of ``n_iters`` iterations; returns the last metrics."""
         if not self._has_gaussians or not self.keyframes:
             return None
-        ids, bgs = self._presample_iters(n_iters, finetuning=finetuning)
         m = None
+        if self._mesh is not None:
+            for _ in range(n_iters):
+                m = self._optimization_step_dp(is_important=is_important)
+            return m
+        ids, bgs = self._presample_iters(n_iters, finetuning=finetuning)
         for kid, bg in zip(ids, bgs):
             m = self.train_step(kid, bg, is_important)
         return m

@@ -135,10 +135,12 @@ def window_argmax(D11b, D21b, p, valid, radius: int, d_max: int, d_min: int = 1,
     p_out = torch.empty_like(p)
     score = torch.empty(n, dtype=torch.float32, device=p.device)
     fn = kernels.load().artdeco_refine_f32 if f32 else kernels.load().artdeco_refine
-    err = fn(
-        planes.data_ptr(), D21b.data_ptr(), p.data_ptr(), valid.data_ptr(), n, h, w,
-        radius, d_max, d_min, init_score, p_out.data_ptr(), score.data_ptr(),
-        torch.cuda.current_stream(p.device).cuda_stream)
+    # the launch runs on the host thread's current device: make it the data's
+    with torch.cuda.device(p.device):
+        err = fn(
+            planes.data_ptr(), D21b.data_ptr(), p.data_ptr(), valid.data_ptr(), n, h, w,
+            radius, d_max, d_min, init_score, p_out.data_ptr(), score.data_ptr(),
+            torch.cuda.current_stream(p.device).cuda_stream)
     kernels.check(err, "window_argmax")
     if f32:
         window_argmax.launches_f32 += 1

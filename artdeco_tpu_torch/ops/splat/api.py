@@ -98,14 +98,25 @@ def pack_slots(
     kx: int = 4,
     ky: int = 4,
     valid_mask: Optional[torch.Tensor] = None,
+    frustum_hw: Optional[tuple] = None,
+    strip_row0: int = 0,
 ) -> PackedSlots:
     """Everything before the compositor: project, SH colors, stable depth
-    sort, tile binning and the slot gather (differentiable)."""
+    sort, tile binning and the slot gather (differentiable).
+
+    A row strip of a larger image: rows [strip_row0, strip_row0 + height)
+    (``strip_row0`` a multiple of 16) of the image ``K`` sees, whose
+    (H, W) is ``frustum_hw``; it sets the EWA Jacobian's clamp, and
+    footprints are boxed in its tiles (``project.project_gaussians``,
+    ``binning.build_tile_bins``), so a strip renders the image's rows."""
+    if strip_row0 % TILE:
+        raise ValueError(f"strip_row0 {strip_row0} is not a multiple of {TILE}")
     n = means.shape[0]
     proj = project.project_gaussians(
         means, quats, scales, viewmat, K, width, height,
         eps2d=eps2d, near_plane=near_plane, far_plane=far_plane,
-        antialiased=antialiased, radius_clip=radius_clip,
+        antialiased=antialiased, radius_clip=radius_clip, frustum_hw=frustum_hw,
+        row0=strip_row0,
     )
     radii = proj.radii
     if valid_mask is not None:
@@ -131,7 +142,8 @@ def pack_slots(
     tiles_x = -(-width // TILE)
     tiles_y = -(-height // TILE)
     bins = binning.build_tile_bins(
-        proj.means2d.detach()[order], radii.detach()[order], tiles_x, tiles_y, kx, ky
+        proj.means2d.detach()[order], radii.detach()[order], tiles_x, tiles_y, kx, ky,
+        strip_row0 // TILE, -(-frustum_hw[0] // TILE) if frustum_hw else None,
     )
     # binning indexes Gaussians in depth order: map both tables back to the
     # caller's order, so the gather reads the unsorted rows directly

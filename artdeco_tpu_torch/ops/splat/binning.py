@@ -15,7 +15,7 @@ and the two packages can be fed the same slot matrix.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -48,31 +48,42 @@ def build_tile_bins(
     tiles_y: int,
     kx: int = 4,
     ky: int = 4,
+    strip_tile0: int = 0,
+    image_tiles_y: Optional[int] = None,
 ) -> TileBins:
+    """``strip_tile0`` and ``image_tiles_y``: the render is tile rows
+    [strip_tile0, strip_tile0 + tiles_y) of an image of ``image_tiles_y``
+    tile rows (a row strip; by default the whole image).  Footprints are
+    boxed and capped in the whole image's tiles, so the strips of a sharded
+    render bin each Gaussian into the tiles the whole image bins it into.
+    """
     n = means2d.shape[0]
     dev = means2d.device
     num_tiles = tiles_x * tiles_y
     valid = torch.amax(radii, dim=-1) > 0
+    image_tiles_y = tiles_y if image_tiles_y is None else image_tiles_y
 
     rx = torch.clamp_max(radii[:, 0], (kx * TILE) / 2.0)
     ry = torch.clamp_max(radii[:, 1], (ky * TILE) / 2.0)
 
-    def tile_of(x, hi):
+    def tile_of(x, lo, hi):
         # NaN/inf coordinates only occur on culled rows (masked below)
         x = torch.nan_to_num(torch.floor(x / TILE), nan=0.0)
-        return torch.clamp(x, 0, hi).to(torch.int32)
+        return torch.clamp(x, lo, hi).to(torch.int32)
 
-    tx0 = tile_of(means2d[:, 0] - rx, tiles_x - 1)
-    ty0 = tile_of(means2d[:, 1] - ry, tiles_y - 1)
-    tx1 = torch.minimum(tile_of(means2d[:, 0] + rx, tiles_x - 1), tx0 + kx - 1)
-    ty1 = torch.minimum(tile_of(means2d[:, 1] + ry, tiles_y - 1), ty0 + ky - 1)
+    # rows in the strip's tiles, clamped to the whole image's
+    y_lo, y_hi = -strip_tile0, image_tiles_y - 1 - strip_tile0
+    tx0 = tile_of(means2d[:, 0] - rx, 0, tiles_x - 1)
+    ty0 = tile_of(means2d[:, 1] - ry, y_lo, y_hi)
+    tx1 = torch.minimum(tile_of(means2d[:, 0] + rx, 0, tiles_x - 1), tx0 + kx - 1)
+    ty1 = torch.minimum(tile_of(means2d[:, 1] + ry, y_lo, y_hi), ty0 + ky - 1)
 
     dxs = torch.arange(kx, dtype=torch.int32, device=dev)
     dys = torch.arange(ky, dtype=torch.int32, device=dev)
     txs = tx0[:, None] + dxs[None, :]                     # (N, kx)
     tys = ty0[:, None] + dys[None, :]                     # (N, ky)
     in_x = txs <= tx1[:, None]
-    in_y = tys <= ty1[:, None]
+    in_y = (tys <= ty1[:, None]) & (tys >= 0) & (tys < tiles_y)
     tile_id = tys[:, :, None] * tiles_x + txs[:, None, :]  # (N, ky, kx)
     pair_valid = valid[:, None, None] & in_y[:, :, None] & in_x[:, None, :]
     pair_tile = torch.where(

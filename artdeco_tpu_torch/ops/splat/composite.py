@@ -160,11 +160,13 @@ def composite_fwd(slot_data, pad_starts, pad_counts, tiles_x, tiles_y):
     out = torch.empty(num_tiles, PIX, C_MAX, device=slot_data.device)
     stop = torch.empty(num_tiles, dtype=torch.int32, device=slot_data.device)
     lib = kernels.load()
-    err = lib.artdeco_composite_fwd(
-        slot_data.data_ptr(), slot_data.shape[1], pad_starts.data_ptr(),
-        pad_counts.data_ptr(), num_tiles, tiles_x, out.data_ptr(), stop.data_ptr(),
-        torch.cuda.current_stream(slot_data.device).cuda_stream,
-    )
+    # the launch runs on the host thread's current device: make it the data's
+    with torch.cuda.device(slot_data.device):
+        err = lib.artdeco_composite_fwd(
+            slot_data.data_ptr(), slot_data.shape[1], pad_starts.data_ptr(),
+            pad_counts.data_ptr(), num_tiles, tiles_x, out.data_ptr(), stop.data_ptr(),
+            torch.cuda.current_stream(slot_data.device).cuda_stream,
+        )
     kernels.check(err, "composite_fwd")
     composite_fwd.launches += 1
     return out, stop
@@ -291,11 +293,12 @@ def composite_bwd(slot_data, pad_starts, pad_counts, tiles_x, tiles_y, g_out, st
     # results per (tile, pixel)
     ckpt = torch.empty((S // CHUNK + num_tiles) * PIX * 2, device=slot_data.device)
     lib = kernels.load()
-    err = lib.artdeco_composite_bwd(
-        slot_data.data_ptr(), S, pad_starts.data_ptr(), pad_counts.data_ptr(),
-        stop.data_ptr(), num_tiles, tiles_x, g_out.data_ptr(), ckpt.data_ptr(),
-        grad.data_ptr(), torch.cuda.current_stream(slot_data.device).cuda_stream,
-    )
+    with torch.cuda.device(slot_data.device):
+        err = lib.artdeco_composite_bwd(
+            slot_data.data_ptr(), S, pad_starts.data_ptr(), pad_counts.data_ptr(),
+            stop.data_ptr(), num_tiles, tiles_x, g_out.data_ptr(), ckpt.data_ptr(),
+            grad.data_ptr(), torch.cuda.current_stream(slot_data.device).cuda_stream,
+        )
     kernels.check(err, "composite_bwd")
     composite_bwd.launches += 1
     return grad

@@ -65,7 +65,13 @@ def project_gaussians(
     antialiased: bool = False,
     radius_clip: float = 0.0,
     frustum_hw: Optional[tuple] = None,
+    row0: int = 0,
 ) -> Projected:
+    """``row0``: project onto rows [row0, row0 + height) of the image ``K``
+    sees (a row strip; ``frustum_hw`` then the image's (H, W)).  Pixel
+    coordinates are the image's moved up by ``row0``: the difference is
+    exact for every Gaussian that can reach the strip (v >= row0 / 2), so
+    a strip's pixel-Gaussian pairs are the whole image's, bit for bit."""
     R = viewmat[:3, :3]
     t = viewmat[:3, 3]
     p_cam = means @ R.T + t
@@ -76,7 +82,7 @@ def project_gaussians(
     z_safe = torch.where(torch.abs(z) > 1e-8, z, torch.full_like(z, 1e-8))
     u = fx * p_cam[..., 0] / z_safe + cx
     v = fy * p_cam[..., 1] / z_safe + cy
-    means2d = torch.stack([u, v], dim=-1)
+    means2d = torch.stack([u, v - row0 if row0 else v], dim=-1)
 
     # EWA: cov2d = J W cov3d W^T J^T with the frustum-clamped Jacobian; with
     # M = R(q) diag(s), cov2d[ij] = <u_i, u_j> for u = s * R(q)^-1 a
@@ -120,7 +126,7 @@ def project_gaussians(
         & (z < far_plane)
         & (det > 0)
         & (u + rx > 0) & (u - rx < width)
-        & (v + ry > 0) & (v - ry < height)
+        & (v + ry > row0) & (v - ry < row0 + height)
         & (torch.maximum(rx, ry) > radius_clip)
     )
     radii = torch.where(valid[..., None], torch.stack([rx, ry], -1), torch.zeros_like(means2d))

@@ -20,8 +20,10 @@ loader where it applies.  The runner is MASt3R (``--model_size full``: ViT-L in 
 ``--checkpoint_path`` (a released ``.pth``, or ``.safetensors`` through the
 ``safetensors`` package) or, when there is no such file, seeded random
 weights; or, with ``--oracle``, the synthetic dataset's ground-truth
-pointmaps.  The JAX package's pre-converted flax ``.npz`` checkpoints and
-the web viewer are not ported.
+pointmaps.  ``--n_devices N`` runs the mapper and the backend's GN over the
+first N cards (``System.enable_mesh``; with ``--device cpu``, N slots on the
+CPU).  The JAX package's pre-converted flax ``.npz`` checkpoints and the web
+viewer are not ported.
 """
 
 import os

@@ -25,8 +25,10 @@ rigid transforms, densify, training bursts, metrics): ``System`` drives it
 with the backend's messages, and the mapper-only runs drive it with
 ``exact_mapper_messages``.
 
-Not ported: the ``--n_devices`` mesh, the viewers and the AOT prewarm
-machinery.
+``--n_devices N`` (N > 1) trains the mapper keyframe-data-parallel over a
+mesh of N devices and shards the backend's dense GN over its edges
+(``System.enable_mesh``, ``parallel/``).  Not ported: the viewers and the
+AOT prewarm machinery.
 """
 
 from __future__ import annotations
@@ -524,8 +526,6 @@ class System:
         self.dataset = dataset
         self.device = resolve(device)
         float32_policy()
-        if int(getattr(args, "n_devices", 1) or 1) > 1:
-            raise NotImplementedError("--n_devices > 1: the multi-device mesh is not ported")
         self.auto_calib = self._maybe_auto_calibrate(args, dataset, runner)
         self.keyframes = KeyframeStore(dataset.H_slam, dataset.W_slam, K_slam=dataset.K_slam,
                                        device=self.device)
@@ -549,6 +549,11 @@ class System:
             num_common_iterations=getattr(args, "num_common_iterations", 0),
             slam_keyframes=self.keyframes,
             rigid_transform_gaussians=getattr(args, "rigid_transform_gaussians", True))
+        n_dev = int(getattr(args, "n_devices", 1) or 1)
+        if n_dev > 1:
+            from artdeco_tpu_torch.parallel.mesh import make_mesh
+
+            self.enable_mesh(make_mesh(n_dev, self.device))
         self.runtimes = Runtimes()
         self.start_time = None
         self.n_frames = 0
@@ -558,6 +563,14 @@ class System:
     @property
     def scene_model(self) -> SceneModel:
         return self.mapper.scene_model
+
+    def enable_mesh(self, mesh) -> None:
+        """Run the multi-device path over ``mesh`` (``parallel/mesh.Mesh``,
+        axis "dp", its first device the System's): the mapper trains one
+        keyframe a slot each iteration and shards its full-frame renders,
+        and the backend's dense GN shards its edges."""
+        self.scene_model.enable_mesh(mesh)
+        self.backend.factor_graph.enable_mesh(mesh, "dp")
 
     @property
     def mapper_index(self) -> int:

@@ -25,10 +25,17 @@ What the tensor form changes, and why the results are the JAX package's:
   linear system is the same.  Edge terms are computed only over the edges
   up to the last real one: a padding edge's terms are exact zeros.
 * **Precision.**  Products and the solve run without TF32.
+* **Edge sharding** (``gauss_newton_calib_sharded``, the JAX package's
+  ``shard_map`` over edges): over a ``parallel/mesh.Mesh``, each slot
+  builds the statics and the (H, g) partial sums of its contiguous slice
+  of the edges on its device; the partials are summed on the home device
+  in slot order once per GN iteration, and the dense solve runs there
+  (JAX solves it on every device, with the same result).
 """
 
 from __future__ import annotations
 
+import functools
 import time
 
 import numpy as np
@@ -283,13 +290,49 @@ def gauss_newton_calib_sparse(T_wc, Xs, Cs, K, ii, jj, idx_ii2jj, valid_match, Q
         return _gn(True, **kw)
 
 
+def gauss_newton_calib_sharded(mesh, axis: str, T_wc, Xs, Cs, K, ii, jj, idx_ii2jj,
+                               valid_match, Q, edge_valid, pose_used, height: int,
+                               width: int, pixel_border: int = -10, z_eps: float = 1e-6,
+                               sigma_pixel: float = 1.0, sigma_depth: float = 10.0,
+                               C_thresh: float = 0.0, Q_thresh: float = 1.5,
+                               max_iter: int = 10, delta_thresh: float = 1e-8,
+                               num_fix: int = 1, chunk: int = None, point_stride: int = 1):
+    """:func:`gauss_newton_calib` with the edges sharded over ``mesh``'s
+    ``axis``: slot d takes the d-th of n contiguous slices of the E edges
+    (E % n must be 0; ``ValueError`` otherwise), ``chunk`` defaults to the
+    slice, E // n.  The inputs are on the mesh's home device; so are the
+    poses returned."""
+    n = mesh.shape[axis]
+    E = ii.shape[0]
+    if E % n:
+        raise ValueError(f"edge pad {E} not divisible by mesh axis {n}")
+    if chunk is None:
+        chunk = max(1, E // n)
+    kw = dict(locals())
+    del kw["n"], kw["E"], kw["axis"]
+    with full_f32():
+        return _gn(False, **kw)
+
+
 def _gn(sparse: bool, *, T_wc, Xs, Cs, K, ii, jj, idx_ii2jj, valid_match, Q, edge_valid,
         pose_used, height, width, pixel_border, max_iter, delta_thresh, num_fix,
-        pcg_iters=None, **statics):
+        pcg_iters=None, mesh=None, **statics):
     P = T_wc.shape[0]
     dev = T_wc.device
-    edges = _Edges(P, Xs, Cs, ii, jj, idx_ii2jj, valid_match, Q, edge_valid,
-                   **_solve_statics(statics))
+    st = _solve_statics(statics)
+    if mesh is None:
+        parts = [(_Edges(P, Xs, Cs, ii, jj, idx_ii2jj, valid_match, Q, edge_valid, **st),
+                  Xs, K)]
+    else:
+        # slot d: the d-th contiguous slice of the edges, built on its device
+        m = ii.shape[0] // mesh.size
+        parts = []
+        for d in range(mesh.size):
+            rep = lambda x: mesh.replicate(x, d)  # noqa: E731
+            e = slice(d * m, (d + 1) * m)
+            Xd = rep(Xs)
+            parts.append((_Edges(P, Xd, rep(Cs), *(rep(a[e]) for a in (
+                ii, jj, idx_ii2jj, valid_match, Q, edge_valid)), **st), Xd, rep(K)))
     free = pose_used.to(dev) & (torch.arange(P, device=dev) >= num_fix)
     if sparse and pcg_iters is None:
         pcg_iters = max(128, 2 * P)
@@ -298,10 +341,21 @@ def _gn(sparse: bool, *, T_wc, Xs, Cs, K, ii, jj, idx_ii2jj, valid_match, Q, edg
     for it in range(max_iter):
         if it and it % GN_BLOCK == 0 and not bool(active):
             break
-        B, gj = edges.blocks(T, Xs, K, height, width, pixel_border, statics["z_eps"])
-        g = edges.gradient(gj)
-        dx = (_pcg_step(edges, B, g, free, pcg_iters) if sparse
-              else _dense_step(edges, B, g, free, P))
+        if sparse:
+            edges = parts[0][0]
+            B, gj = edges.blocks(T, Xs, K, height, width, pixel_border, statics["z_eps"])
+            dx = _pcg_step(edges, B, edges.gradient(gj), free, pcg_iters)
+        else:
+            # the normal equations: each part's partial sums, summed at home
+            # in part order
+            H = g = None
+            for d, (edges, Xd, Kd) in enumerate(parts):
+                Td = T if mesh is None else mesh.replicate(T, d)
+                B, gj = edges.blocks(Td, Xd, Kd, height, width, pixel_border,
+                                     statics["z_eps"])
+                Hd, gd = edges.dense(B, P).to(dev), edges.gradient(gj).to(dev)
+                H, g = (Hd, gd) if H is None else (H + Hd, g + gd)
+            dx = _dense_step(H, g, free, P)
         dx = _clamp_step(dx)
         T_new = lie.sim3_normalize(lie.sim3_retr(T, dx))
         T = torch.where(active & free[:, None], T_new, T)
@@ -309,8 +363,7 @@ def _gn(sparse: bool, *, T_wc, Xs, Cs, K, ii, jj, idx_ii2jj, valid_match, Q, edg
     return T
 
 
-def _dense_step(edges, B, g, free, P):
-    H = edges.dense(B, P)
+def _dense_step(H, g, free, P):
     Hd = H.permute(0, 2, 1, 3).reshape(P * D, P * D)
     pin = (~free).repeat_interleave(D)
     Hd = torch.where(pin[:, None] | pin[None, :], 0.0, Hd)
@@ -375,7 +428,8 @@ def _pow2(n, lo=8):
 
 class FactorGraph:
     """Edge store with two-way matching (``global_opt.py:563-1161`` of the
-    JAX package, without its AOT prewarm and mesh hooks).
+    JAX package, without its AOT prewarm); ``enable_mesh`` shards the dense
+    GN's edges over a mesh.
 
     Per-edge scalars (``e_ii``, ``e_jj``, ``e_valid``) are host numpy at a
     power-of-two capacity; the O(HW) payloads (match index map, validity,
@@ -407,6 +461,15 @@ class FactorGraph:
         self.sync_timing = False
         self.solves: list = []        # (P, E, n_edges) of each solve
         self.match_rows = 0           # rows matched by add_factors (K3 launches)
+        self.mesh = None              # enable_mesh
+        self.mesh_axis = "dp"
+        self.sharded_solves = 0       # solves that ran gauss_newton_calib_sharded
+
+    def enable_mesh(self, mesh, axis: str = "dp") -> None:
+        """Shard the edges of later dense GN solves over ``mesh``'s ``axis``
+        (``gauss_newton_calib_sharded``); ``None`` turns it off."""
+        self.mesh = mesh
+        self.mesh_axis = axis
 
     def _t(self, key: str, t0: float) -> float:
         if self.sync_timing and self.device.type == "cuda":
@@ -580,6 +643,10 @@ class FactorGraph:
         jj_p = torch.as_tensor(remap[self.e_jj[:E]], device=dev)
         solver = (gauss_newton_calib if P <= self.DENSE_POSE_LIMIT
                   else gauss_newton_calib_sparse)
+        if (self.mesh is not None and P <= self.DENSE_POSE_LIMIT
+                and E % self.mesh.shape[self.mesh_axis] == 0):
+            solver = functools.partial(gauss_newton_calib_sharded, self.mesh, self.mesh_axis)
+            self.sharded_solves += 1
         t0 = self._t("gn.prep", t0)
         with torch.profiler.record_function("gn.solve"):
             T_new = solver(

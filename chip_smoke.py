@@ -9,8 +9,9 @@ the ``MapperConfig`` defaults, the tracking frontend (``Frontend`` +
 ``OracleRunner``) over a 120-frame 512x384 stream with
 ``config/base.yaml`` as it is, the full ``System`` on the oracle stream,
 the model-driven ``System`` (full-width MASt3R and Pi3) through
-``run_system.main``, and streams read from image files (an image folder
-and a TUM sequence) through the entry point.
+``run_system.main``, streams read from image files (an image folder and a
+TUM sequence) through the entry point, and the multi-device path (the
+data-parallel mapper, row-strip renders, the edge-sharded GN).
 
 1. device: a CUDA device is required; prints ``nvidia-smi``'s name and
    power limit; builds the CUDA kernels from ``artdeco_tpu_torch/csrc``
@@ -125,6 +126,30 @@ and a TUM sequence) through the entry point.
    the stream shape, timed beside bf16 K3, and the tracking frontend over
    24 frames with ``refine_dtype: null``: one f32 launch a tracked frame.
 
+13. the multi-device path (``parallel/``, ``System.enable_mesh``) on a
+   virtual mesh of 4 slots sharing the one card (``Mesh([cuda:0] * 4)``:
+   its times are those of 4 slots on one card, not a scaling measurement):
+   (a) ``render_from_id`` and ``render_sharded`` in 4 row strips of 96 rows
+   at 512x384 on phase 8's scene and on a random scene of 10^5 Gaussians,
+   each against the single-device render of the same view (RGB within
+   3e-5, depth within 1e-3 relative, visibility equal, 4 K1 launches a
+   render) and timed beside it; (b) one dp step at 256x192 on phase 8's
+   state with keyframes [a, b, b, test] against the same step on the CPU
+   at ``tests/test_torch_parallel.py``'s tolerances, K1 and K2 launched 4
+   times each, timed beside a one-slot step, with the replica copy's
+   device time; (c) the edge-sharded GN against the unsharded one on the
+   JAX package's dry-run problem (64 edges) and on phase 8's factor graph
+   at its final (P, E); (d) ``System.run`` over phase 8's first 120 frames
+   with ``System.enable_mesh``: 0 lost, training only through dp steps, K1
+   = 4 x (dp steps + sharded renders) + renders, K2 = 4 x dp steps, K3 as
+   in phase 8, every GN solve sharded, ATE < 0.03 m; ms per frame, FPS,
+   keyframes, ATE, PSNR and Gaussians beside phase 8's.  (e) On a machine
+   with 2 or more cards, ``run_system --oracle --n_devices k`` (k = 2 or
+   4 distinct cards) on 120 frames, then (a)-(c) over the k cards on that
+   run's scene and graph, and K1 launched from a thread whose current
+   device is another card; with one card, one line says that (e) did not
+   run.
+
 Prints one line per phase, then a JSON line of the kernels and, last,
 ``{"ok": true, "device": {...}}``.  Any failed check raises: the exit code
 is then not 0 and the last line is not printed.
@@ -173,6 +198,9 @@ BOOT_FRAMES = 9              # phase 12c: frames 0..8
 SOLVER_POINTS = 1024         # phase 12d
 KNN_POINTS = 100_000         # phase 12e
 F32_TRACK_FRAMES = 24        # phase 12f
+MESH_SLOTS = 4               # phase 13: the virtual mesh, 4 slots on one card
+MESH_FRAMES = 120            # phase 13d: the first 120 frames of phase 8's stream
+MESH_TIMED = 5
 # The H100 machine this script targets has no libjpeg: g++ there reads
 # "fatal error: jpeglib.h: No such file or directory", so the native
 # loader cannot be built on it.  By this fixed decision phase 11 runs the
@@ -633,21 +661,28 @@ def read_launches() -> dict:
 def check_system_launches(sys_, launches: dict, what: str) -> str:
     """A System run's K1/K2/K3 launches against the calls that launch them:
     K1 = training steps + renders, K2 = steps, K3 = tracked matches + the
-    backend's symmetric-match rows + its pair matches.  Returns the line
-    that says so."""
+    backend's symmetric-match rows + its pair matches; with a mesh of n
+    slots, a dp step launches K1 and K2 n times each and a sharded render
+    K1 n times.  Returns the line that says so."""
     fe, bk, fg, sm = sys_.frontend, sys_.backend, sys_.backend.factor_graph, sys_.scene_model
     tracked = fe.tracker.timers["trk.match"][1]
     k3_want = tracked + fg.match_rows + bk.pair_matches
     check(launches["k3"] == k3_want, f"{what}: K3 launches {launches['k3']} != {tracked} "
           f"tracked + {fg.match_rows} symmetric rows + {bk.pair_matches} pair matches")
-    check(launches["bwd"] == sm.n_train_steps > 0,
-          f"{what}: K2 launches {launches['bwd']} != {sm.n_train_steps} training steps")
-    check(launches["fwd"] == sm.n_train_steps + sm.n_renders,
-          f"{what}: K1 launches {launches['fwd']} != {sm.n_train_steps} steps + "
-          f"{sm.n_renders} renders")
-    return (f"launches K1 {launches['fwd']} (= {sm.n_train_steps} steps + {sm.n_renders} "
-            f"renders) K2 {launches['bwd']} K3 {launches['k3']} (= {tracked} tracked + "
-            f"{fg.match_rows} symmetric rows + {bk.pair_matches} pair matches)")
+    n = sm._mesh.size if sm._mesh is not None else 0
+    steps = sm.n_train_steps + n * sm.n_dp_steps
+    renders = sm.n_renders + n * sm.n_sharded_renders
+    mesh = (f" + {n} x {sm.n_dp_steps} dp steps" if n else "",
+            f" + {n} x {sm.n_sharded_renders} sharded renders" if n else "")
+    check(launches["bwd"] == steps > 0, f"{what}: K2 launches {launches['bwd']} != "
+          f"{sm.n_train_steps} training steps{mesh[0]}")
+    check(launches["fwd"] == steps + renders,
+          f"{what}: K1 launches {launches['fwd']} != {sm.n_train_steps} steps{mesh[0]} + "
+          f"{sm.n_renders} renders{mesh[1]}")
+    return (f"launches K1 {launches['fwd']} (= {sm.n_train_steps} steps{mesh[0]} + "
+            f"{sm.n_renders} renders{mesh[1]}) K2 {launches['bwd']} K3 {launches['k3']} (= "
+            f"{tracked} tracked + {fg.match_rows} symmetric rows + {bk.pair_matches} pair "
+            f"matches)")
 
 
 def full_system_phase(dev, cfg):
@@ -718,8 +753,10 @@ def full_system_phase(dev, cfg):
           f"message), map {rt.get('map', 0):.2f} (per work item, worker thread); peak memory "
           f"{peak_mib:.1f} MiB", flush=True)
     kf_T = sys_.keyframes.T_WC[:n_kf].copy()
+    # phase 13 runs the multi-device path on this run's scene and graph
     ref = dict(ds=ds, kf_frames=kf_frames, est=fe.estimated_trajectory(), psnr=psnr,
-               lost=fe.lost_number, ms=statistics.median(frame_ms), fps=SYS_FRAMES / run_s)
+               lost=fe.lost_number, ms=statistics.median(frame_ms), fps=SYS_FRAMES / run_s,
+               ate=ate, n_gaussians=meta["n_gaussians"], scene_model=sm, factor_graph=fg)
     del sys_, fe, bk, fg, sm
     gc.collect()
     torch.cuda.empty_cache()
@@ -1760,6 +1797,474 @@ def side_models_phase(dev, tcfg, tds) -> tuple:
     return golden, launches
 
 
+def moved(obj, device):
+    """A copy of a state tree (tensors in dataclasses, dicts and named
+    tuples) on ``device``."""
+    import torch
+
+    if isinstance(obj, torch.Tensor):
+        return obj.to(device, copy=True)
+    if dataclasses.is_dataclass(obj):
+        return type(obj)(**{f.name: moved(getattr(obj, f.name), device)
+                            for f in dataclasses.fields(obj)})
+    if isinstance(obj, tuple) and hasattr(obj, "_fields"):
+        return type(obj)(*(moved(x, device) for x in obj))
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(moved(x, device) for x in obj)
+    if isinstance(obj, dict):
+        return {k: moved(v, device) for k, v in obj.items()}
+    return obj
+
+
+def random_scene(dev, n: int, seed: int = 3):
+    """A ``SceneModel`` (``MapperConfig()``, 512x384) holding ``n`` random
+    active Gaussians in front of keyframe 0's camera (the identity pose):
+    depths 1.5-4, scales 3-30 mm, random rotations, opacities, colours,
+    features and clusters."""
+    import torch
+    from artdeco_tpu_torch.mapper import gaussians as G
+    from artdeco_tpu_torch.mapper import keyframe as KF
+    from artdeco_tpu_torch.mapper.config import MapperConfig
+    from artdeco_tpu_torch.mapper.scene_model import SceneModel
+
+    cfg = MapperConfig()
+    f = 0.8 * SYS_W
+    K = np.asarray([[f, 0, SYS_W / 2], [0, f, SYS_H / 2], [0, 0, 1]], np.float32)
+    sm = SceneModel(SYS_W, SYS_H, K, cfg, device=dev, seed=seed)
+    g = torch.Generator().manual_seed(seed)
+    u = lambda *s: torch.rand(*s, generator=g)  # noqa: E731
+    z = 1.5 + 2.5 * u(n)
+    slab = G.create_slab(n, cfg.sh_degree, cfg.local_feat_dim, cfg.position_lr_init, "cpu")
+    slab = dataclasses.replace(
+        slab, active=torch.ones(n, dtype=torch.bool),
+        cls_id=torch.randint(0, cfg.cluster_capacity, (n,), generator=g, dtype=torch.int32),
+        xyz=torch.stack([(u(n) * 2 - 1) * 0.7 * z, (u(n) * 2 - 1) * 0.5 * z, z], -1),
+        f_dc=u(n, 1, 3) * 2 - 1, f_rest=0.1 * torch.randn(slab.f_rest.shape, generator=g),
+        scaling=torch.log(0.003 + 0.027 * u(n, 3)), rotation=torch.randn(n, 4, generator=g),
+        opacity=torch.randn(n, 1, generator=g),
+        local_feat=0.3 * torch.randn(slab.local_feat.shape, generator=g))
+    sm.slab = moved(slab, dev)
+    sm.opt = G.create_opt_state(sm.slab)
+    sm._train_len = n
+    sm.gfeat.val.copy_(0.3 * torch.randn(sm.gfeat.val.shape, generator=g))
+    KF.set_keyframe(sm.pool, 0, torch.eye(4, device=dev), torch.eye(3, 4, device=dev),
+                    0.0, 0.0, 0.0, False)
+    return sm
+
+
+def strip_render_line(sm, mesh, kf: int, what: str) -> str:
+    """Phase 13a on one scene: ``render_from_id`` (render_core) and
+    ``render_sharded`` (raw splats) in row strips over ``mesh`` against the
+    single-device render of the same view (RGB within 3e-5, visibility
+    equal, one K1 launch a strip), and their device ms.  Leaves ``mesh``
+    enabled on ``sm``."""
+    import torch
+    from artdeco_tpu_torch.mapper import keyframe as KF
+    from artdeco_tpu_torch.ops.splat import api
+
+    n = mesh.size
+    sm.enable_mesh(None)
+    single = sm.render_from_id(kf)
+    s = sm.slab
+    raw = (s.xyz, s.rotation, torch.exp(s.scaling), torch.sigmoid(s.opacity[:, 0]),
+           torch.cat([s.f_dc, s.f_rest], 1), KF.get_Rt(sm.pool, kf), sm._K_at_lvl(0))
+    raw_single, raw_alpha, _ = api.rasterization(
+        *raw, sm.width, sm.height, sh_degree=sm.cfg.sh_degree,
+        eps2d=sm.cfg.low_pass_filter_eps, valid_mask=s.active)
+    single_ms = cuda_ms(lambda: sm.render_from_id(kf), MESH_TIMED)
+    raw_single_ms = cuda_ms(lambda: api.rasterization(
+        *raw, sm.width, sm.height, sh_degree=sm.cfg.sh_degree,
+        eps2d=sm.cfg.low_pass_filter_eps, valid_mask=s.active), MESH_TIMED)
+    sm.enable_mesh(mesh)
+    reset_launches()
+    sharded = sm.render_from_id(kf)
+    torch.cuda.synchronize()
+    k1_core = read_launches()["fwd"]
+    reset_launches()
+    raw_render, raw_sh_alpha = sm.render_sharded(kf)
+    torch.cuda.synchronize()
+    k1_raw = read_launches()["fwd"]
+    check(k1_core == n and k1_raw == n,
+          f"13a {what}: K1 launches {k1_core} / {k1_raw} for {n} strips")
+    sharded_ms = cuda_ms(lambda: sm.render_from_id(kf), MESH_TIMED)
+    raw_ms = cuda_ms(lambda: sm.render_sharded(kf), MESH_TIMED)
+    err = float((sharded["render"] - single["render"]).abs().max())
+    err_id = float((sharded["invdepth"] - single["invdepth"]).abs().max())
+    d, dr = sharded["depth"], single["depth"]
+    depth_ok = bool(((d - dr).abs() <= 1e-3 * dr.abs() + 1e-5).all())
+    err_raw = float((raw_render[..., :3] - raw_single[..., :3]).abs().max())
+    err_raw_a = float((raw_sh_alpha - raw_alpha).abs().max())
+    vis_eq = bool(torch.equal(sharded["visibility"], single["visibility"]))
+    gvis_eq = bool(torch.equal(sharded["global_visibility"], single["global_visibility"]))
+    check(err <= 3e-5 and err_raw <= 3e-5, f"13a {what}: strips RGB {err} / raw {err_raw} "
+          "from the single render")
+    check(depth_ok, f"13a {what}: strips depth beyond 1e-3 relative of the single render")
+    check(vis_eq and gvis_eq, f"13a {what}: visibility differs from the single render")
+    return (f"{what}: {n} strips of {sm.height // n} rows at {sm.width}x{sm.height}, "
+            f"{int(single['visibility'].sum())} visible Gaussians; render_from_id RGB max "
+            f"diff {err:.3g}, depth within 1e-3 relative (invdepth max diff {err_id:.3g}), "
+            f"visibility and cluster visibility equal; "
+            f"render_sharded RGB {err_raw:.3g}, alpha {err_raw_a:.3g}; K1 launches {k1_core} a "
+            f"render; device ms: render_from_id {sharded_ms:.3f} sharded vs {single_ms:.3f} "
+            f"single, raw {raw_ms:.3f} sharded vs {raw_single_ms:.3f} single")
+
+
+def dp_close(out, ref, before, cfg) -> dict:
+    """A dp step's outputs ``out`` against ``ref`` (the same step on another
+    device) from the state ``before``, at the CPU parity test's tolerances
+    (``tests/test_torch_parallel.py``): loss rtol 1e-5; gradients, read from
+    the first Adam moment, within 1e-4 of each group's largest; parameters
+    whose gradient that check resolves within atol 2e-5 / rtol 1e-4, the
+    others within one Adam step; the pool's rows likewise; ``mlp_lr``
+    exact.  Returns the largest differences."""
+    from artdeco_tpu_torch.mapper import gaussians as G
+    from artdeco_tpu_torch.mapper.scene_model import MLP_KEYS
+
+    a = [moved(x, "cpu") for x in out]
+    b = [moved(x, "cpu") for x in ref]
+    s0 = [moved(x, "cpu") for x in before]
+    b1 = cfg.adam_b1
+    full = (1 - b1) / np.sqrt(1 - cfg.adam_b2)
+    lrs = dict(xyz=cfg.position_lr_init, f_dc=cfg.feature_lr, f_rest=cfg.feature_lr / 20.0,
+               scaling=cfg.scaling_lr, rotation=cfg.rotation_lr, opacity=cfg.opacity_lr,
+               local_feat=cfg.feat_lr)
+    groups = [(k, getattr(a[0], k), getattr(b[0], k), a[1][k].exp_avg, b[1][k].exp_avg,
+               s0[1][k].exp_avg, lrs[k]) for k in G.TRAINED_KEYS]
+    groups.append(("gfeat", a[2].val, b[2].val, a[2].opt.exp_avg, b[2].opt.exp_avg,
+                   s0[2].opt.exp_avg, cfg.feat_lr))
+    groups += [("mlp." + k, getattr(a[3], k), getattr(b[3], k), a[4][k].exp_avg,
+                b[4][k].exp_avg, s0[4][k].exp_avg, float(s0[5])) for k in MLP_KEYS]
+    worst = dict(loss=abs(float(a[7]["loss"]) / float(b[7]["loss"]) - 1), grad=0.0, param=0.0,
+                 pool=0.0)
+    check(worst["loss"] <= 1e-5, f"13b loss {float(a[7]['loss'])} vs {float(b[7]['loss'])}")
+    check(float(a[5]) == float(b[5]), f"13b mlp_lr {float(a[5])} vs {float(b[5])}")
+    for k, pa, pb, ma, mb, m0, lr in groups:
+        ga, gb = (ma - b1 * m0) / (1 - b1), (mb - b1 * m0) / (1 - b1)
+        scale = max(float(gb.abs().max()), 1e-30)
+        e = float((ga - gb).abs().max())
+        check(e <= 1e-4 * scale, f"13b {k} gradient {e} > 1e-4 * {scale}")
+        worst["grad"] = max(worst["grad"], e / scale)
+        resolved = gb.abs() > 1e-4 * scale
+        d = (pa - pb).abs()
+        ok = d <= 2e-5 + 1e-4 * pb.abs()
+        check(bool(ok[resolved].all()), f"13b {k}: {int((~ok & resolved).sum())} parameters "
+              f"beyond atol 2e-5 / rtol 1e-4, max {float(d[resolved].max())}")
+        check(bool((d[~resolved] <= lr * full).all()), f"13b {k} beyond one Adam step")
+        worst["param"] = max(worst["param"], float(d[resolved].max()) if resolved.any() else 0)
+    for f in ("r_w2c", "t_w2c", "exposure", "depth_loss_weight"):
+        pa, pb = getattr(a[6], f), getattr(b[6], f)
+        d = float((pa - pb).abs().max())
+        check(bool(((pa - pb).abs() <= 2e-5 + 1e-4 * pb.abs()).all()), f"13b pool {f}: {d}")
+        worst["pool"] = max(worst["pool"], d)
+    for f in ("opt_r", "opt_t", "opt_e"):
+        for xa, xb in zip(getattr(a[6], f), getattr(b[6], f)):
+            e = float((xa - xb).abs().max())
+            check(e <= 1e-4 * max(float(xb.abs().max()), 1e-30), f"13b pool {f}: {e}")
+    return worst
+
+
+def dp_step_line(sm, mesh, dev) -> str:
+    """Phase 13b: one dp step over ``mesh`` at the training level on
+    ``sm``'s state, keyframes [a, b, b, test] (distinct, duplicated, a test
+    frame; the first len(mesh) of them), against the same step on the CPU
+    (``dp_close``); K1 and K2 launch once a slot; the ms of the dp step and
+    of a one-slot step on the same state, keyframes per second, and the
+    replica copy."""
+    import torch
+    from artdeco_tpu_torch.parallel.dp import make_dp_train_step, replicate_scene
+    from artdeco_tpu_torch.parallel.mesh import Mesh
+
+    n = mesh.size
+    kfs = [i for i, kf in enumerate(sm.keyframes) if kf is not None]
+    train = [i for i in kfs if not sm.keyframes[i].is_test]
+    tests = [i for i in kfs if sm.keyframes[i].is_test]
+    check(len(train) >= 2 and tests, f"13b: keyframes {train} and test frames {tests}")
+    ids = [train[-1], train[-2], train[-2], tests[-1]][:n]
+    lvl = sm.keyframes[ids[0]].pyr_lvl
+    w, h = sm.width >> lvl, sm.height >> lvl
+    gts, monos = zip(*[sm._device_kf(i, lvl) for i in ids])
+    bg = torch.as_tensor(np.random.RandomState(SEED).rand(n, 3).astype(np.float32), device=dev)
+    flags = [bool(sm.keyframes[i].is_test) for i in ids]
+    state = (sm.slab, sm.opt, sm.gfeat, sm.mlp, sm.mlp_opt, sm.mlp_lr, sm.pool)
+    K = sm._K_at_lvl(lvl)
+    step = make_dp_train_step(mesh, sm.cfg, w, h)
+    torch.cuda.synchronize()
+    reset_launches()
+    out = step(*state, ids, gts, monos, K, bg, is_test=flags)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    check(launches["fwd"] == n and launches["bwd"] == n,
+          f"13b: K1 {launches['fwd']} K2 {launches['bwd']} launches for {n} slots")
+    cpu = torch.device("cpu")
+    t0 = time.time()
+    ref = make_dp_train_step(Mesh([cpu] * n), sm.cfg, w, h)(
+        *moved(state, cpu), ids, moved(list(gts), cpu), moved(list(monos), cpu),
+        K.cpu(), bg.cpu(), is_test=flags)
+    cpu_s = time.time() - t0
+    worst = dp_close(out, ref, state, sm.cfg)
+
+    def host_ms(fn):
+        fn()
+        times = []
+        for _ in range(MESH_TIMED):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        return statistics.median(times)
+
+    dp_ms = host_ms(lambda: step(*state, ids, gts, monos, K, bg, is_test=flags))
+    one = make_dp_train_step(Mesh([mesh.home]), sm.cfg, w, h)
+    one_ms = host_ms(lambda: one(*state, ids[:1], gts[:1], monos[:1], K, bg[:1],
+                                 is_test=flags[:1]))
+    copy_ms = cuda_ms(lambda: [replicate_scene(mesh, d, sm.slab, sm.gfeat.val, sm.mlp)
+                               for d in range(1, n)], MESH_TIMED)
+    rep_mib = sum(x.nbytes for x in (*(getattr(sm.slab, f.name) for f in
+                                       dataclasses.fields(sm.slab)), sm.gfeat.val,
+                                     *(getattr(sm.mlp, k) for k in ("w1", "b1", "w2", "b2"))))
+    return (f"{n} slots at {w}x{h}, keyframes {ids} (test flags {flags}), slab of "
+            f"{sm.slab.capacity} rows ({sm.n_active_gaussians} active); launches K1 "
+            f"{launches['fwd']} K2 {launches['bwd']}; card vs CPU (the CPU step {cpu_s:.1f} s): "
+            f"loss rel {worst['loss']:.3g}, gradients {worst['grad']:.3g} of each group's "
+            f"largest, resolved parameters {worst['param']:.3g}, pool rows {worst['pool']:.3g}, "
+            f"mlp_lr equal; {dp_ms:.2f} ms a dp step ({n / dp_ms * 1e3:.1f} keyframes/s) vs "
+            f"{one_ms:.2f} ms a one-slot step ({1e3 / one_ms:.1f} keyframes/s) on the same "
+            f"state; replica copy {copy_ms:.3f} ms device time for {n - 1} replicas of "
+            f"{rep_mib / 2**20:.1f} MiB")
+
+
+def dryrun_gn_problem():
+    """``__graft_entry__._dryrun_gn_sharded``'s problem: 16 poses viewing
+    one smooth depth field at 32x24 through identity matches, 64 edges,
+    free poses perturbed by 2 cm.  numpy (T, Xs, Cs, K, ii, jj, idx, vm,
+    Q, ev, used), h, w."""
+    P, E, h, w = 16, 64, 24, 32
+    HW = h * w
+    rng = np.random.RandomState(3)
+    f = 40.0
+    K = np.asarray([[f, 0, w / 2], [0, f, h / 2], [0, 0, 1]], np.float32)
+    u, v = np.meshgrid(np.arange(w, dtype=np.float32), np.arange(h, dtype=np.float32))
+    z = 2.0 + 0.3 * np.sin(u / 6.0) * np.cos(v / 5.0)
+    pm = np.stack([(u - w / 2) / f * z, (v - h / 2) / f * z, z], -1).reshape(HW, 3)
+    Xs = np.broadcast_to(pm.astype(np.float32), (P, HW, 3)).copy()
+    T = np.tile(np.array([0, 0, 0, 0, 0, 0, 1, 1], np.float32), (P, 1))
+    T[1:, :3] = 0.02 * rng.randn(P - 1, 3)
+    ii = np.repeat(np.arange(P, dtype=np.int32), E // P)
+    jj = ((ii + 1 + rng.randint(0, P - 1, E)) % P).astype(np.int32)
+    idx = np.broadcast_to(np.arange(HW, dtype=np.int32), (E, HW)).copy()
+    return (T, Xs, np.full((P, HW, 1), 3.0, np.float32), K, ii, jj, idx,
+            np.ones((E, HW), bool), np.full((E, HW, 1), 3.0, np.float32), np.ones(E, bool),
+            np.ones(P, bool)), h, w
+
+
+def sharded_gn_line(dev, mesh, fg, what: str = "phase 8's graph") -> str:
+    """Phase 13c: the edge-sharded GN over ``mesh`` against the unsharded
+    solve, on the JAX dry run's 64-edge problem and on a System's factor
+    graph ``fg`` (``what``) at its final (P, E) (its poses solved again
+    from the same start by each): the largest |dT| and the ms of each."""
+    import torch
+    from artdeco_tpu_torch.vslam import global_opt as go
+
+    arrays, h, w = dryrun_gn_problem()
+    args = [torch.as_tensor(a, device=dev) for a in arrays]
+    out = {}
+    for name, solve in (("single", go.gauss_newton_calib),
+                        ("sharded", lambda *a, **k: go.gauss_newton_calib_sharded(
+                            mesh, "dp", *a, **k))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[name] = solve(*args, h, w, max_iter=10, num_fix=1).cpu().numpy()
+        out[name + "_ms"] = 1e3 * (time.perf_counter() - t0)
+    dT = float(np.abs(out["single"] - out["sharded"]).max())
+    ident = np.tile(np.array([0, 0, 0, 0, 0, 0, 1, 1], np.float32), (16, 1))
+    conv = float(np.abs(out["single"] - ident).max())
+    check(dT < 1e-4 and conv < 1e-3, f"13c dry-run problem: |dT| {dT}, from the optimum {conv}")
+
+    kfs = fg.keyframes
+    n_kf = len(kfs)
+    T0 = kfs.T_WC[:n_kf].copy()
+    mesh0, sharded0 = fg.mesh, fg.sharded_solves
+    res = {}
+    for name, m in (("single", None), ("sharded", mesh)):
+        fg.enable_mesh(m)
+        kfs.T_WC[:n_kf] = T0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fg.solve_GN_calib()
+        torch.cuda.synchronize()
+        res[name + "_ms"] = 1e3 * (time.perf_counter() - t0)
+        res[name] = kfs.T_WC[:n_kf].copy()
+    check(fg.sharded_solves == sharded0 + 1, f"13c: {what} took the unsharded solver")
+    fg.enable_mesh(mesh0)
+    P, E, n_e = fg.solves[-1]
+    dT8 = float(np.abs(res["single"] - res["sharded"]).max())
+    check(dT8 < 1e-4, f"13c {what}: |dT| {dT8}")
+    return (f"the dry run's problem (16 poses, 64 edges over {mesh.size} slots, 32x24): max "
+            f"|dT| {dT:.3g} against the unsharded solve, {conv:.3g} from the optimum; "
+            f"{out['sharded_ms']:.1f} ms sharded vs {out['single_ms']:.1f} ms (host clock, "
+            f"first calls); {what} at (P, E, edges) ({P}, {E}, {n_e}), {n_kf} "
+            f"keyframes: max |dT| {dT8:.3g}, solve_GN_calib {res['sharded_ms']:.1f} ms sharded "
+            f"vs {res['single_ms']:.1f} ms")
+
+
+def mesh_system_line(dev, cfg, mesh, ref) -> tuple:
+    """Phase 13d: ``System.run`` (overlapped) over the first ``MESH_FRAMES``
+    frames of phase 8's stream with ``System.enable_mesh(mesh)``: 0 lost,
+    training only through dp steps, K1/K2/K3 launches as the calls that
+    launch them, every GN solve sharded, ATE < 0.03 m, a finite test PSNR.
+    Returns (the line, the launches)."""
+    import tempfile
+
+    import torch
+    from artdeco_tpu_torch.dataio.dataset import SyntheticDataset
+
+    args = system_args(max_size_slam=SYS_W)
+    ds = SyntheticDataset(args, n_frames=MESH_FRAMES, width=SYS_W, height=SYS_H)
+    sys_, reg_s = make_system(dev, ds, cfg, args)
+    sys_.enable_mesh(mesh)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.time()
+    sys_.run(progress=False)
+    torch.cuda.synchronize()
+    run_s = time.time() - t0
+    meta = sys_.save(tempfile.mkdtemp(prefix="chip_smoke_mesh_"))
+    torch.cuda.synchronize()
+    launches = read_launches()
+    sm, fg = sys_.scene_model, sys_.backend.factor_graph
+    n_kf = len(sys_.keyframes)
+    kf_frames = sys_.keyframes.dataset_idx[:n_kf].tolist()
+    check(sys_.frontend.lost_number == 0, f"13d: {sys_.frontend.lost_number} frames lost")
+    check(sm._dp_steps and sm.n_dp_steps > 0 and sm.n_train_steps == 0,
+          f"13d: {sm.n_dp_steps} dp steps, {sm.n_train_steps} single steps")
+    check(launches["bwd"] == mesh.size * sm.n_dp_steps,
+          f"13d: K2 launches {launches['bwd']} != {mesh.size} x {sm.n_dp_steps} dp steps")
+    line = check_system_launches(sys_, launches, "13d")
+    check(len(fg.solves) >= 1 and fg.sharded_solves == len(fg.solves),
+          f"13d: {fg.sharded_solves} of {len(fg.solves)} GN solves sharded")
+    want_kf = [k for k in ref["kf_frames"] if k < MESH_FRAMES]
+    ate = meta["trajectory"]["APE"]["rmse"]
+    psnr = meta["metrics"].get("PSNR", float("nan"))
+    check(ate < 0.03, f"13d: ATE RMSE {ate} m")
+    check(np.isfinite(psnr), f"13d: test PSNR {psnr}")
+    out = (f"{MESH_FRAMES} frames of phase 8's stream at {SYS_W}x{SYS_H}, overlapped, "
+           f"{mesh.size} slots sharing one card (oracle registered in {reg_s:.1f} s): lost 0; "
+           f"keyframes {n_kf} at frames "
+            f"{kf_frames} (phase 8: {want_kf}); dp steps {sm.n_dp_steps}, sharded renders "
+            f"{sm.n_sharded_renders}; {line}; GN solves {len(fg.solves)}, all sharded; ATE "
+            f"RMSE {ate:.5f} m (phase 8: {ref['ate']:.5f} over {SYS_FRAMES}); test PSNR "
+            f"{psnr:.2f} dB (phase 8: {ref['psnr']:.2f}); Gaussians {meta['n_gaussians']} "
+            f"(phase 8: {ref['n_gaussians']}); {frame_ms_line(sys_, MESH_FRAMES, run_s)} "
+            f"(phase 8: {ref['ms']:.2f} ms, {ref['fps']:.2f} FPS)")
+    del sys_, sm, fg
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def k1_from_another_card(devices) -> str:
+    """Phase 13e: K1 on ``devices[0]``'s data, launched from a thread whose
+    current device is ``devices[1]``, against its plain version."""
+    import threading
+
+    import torch
+    from artdeco_tpu_torch.ops.splat import composite as C
+
+    p = random_slots(devices[0])
+    args = (p.slot_data.contiguous(), p.pad_starts, p.pad_counts, p.tiles_x, p.tiles_y)
+    got = {}
+
+    def run():
+        torch.cuda.set_device(devices[1])
+        got["out"], got["stop"] = C.composite_fwd(*args)
+        torch.cuda.synchronize(devices[0])
+
+    th = threading.Thread(target=run)
+    th.start()
+    th.join(timeout=120)
+    check(not th.is_alive() and "out" in got, "13e: the K1 thread did not finish")
+    ref, stop = C.composite_fwd_plain(*args)
+    err = float((got["out"] - ref).abs().max())
+    check(err <= 1e-3 and torch.equal(got["stop"], stop),
+          f"13e: K1 from {devices[1]}'s thread: err {err}")
+    return f"K1 on {devices[0]}'s data from a thread on {devices[1]}: max err {err:.3g}"
+
+
+def distinct_cards_phase(dev, cfg, k: int) -> None:
+    """Phase 13e, on a machine with ``k`` (2 or 4) cards or more:
+    ``run_system --oracle --n_devices k`` over the first ``MESH_FRAMES``
+    frames of phase 8's stream, then (a)-(c) over the ``k`` cards on that
+    run's scene and factor graph (and the random scene), and K1 launched
+    from a thread whose current device is another card."""
+    import tempfile
+
+    import torch
+    from artdeco_tpu_torch.dataio import dataset as D
+    from artdeco_tpu_torch.parallel.mesh import Mesh
+
+    cards = Mesh([torch.device("cuda", i) for i in range(k)])
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_cards_")
+    argv = ["-s", "synthetic://", "-d", "synthetic", "--oracle", "--test_hold",
+            str(TEST_HOLD), "--max_size_slam", str(SYS_W), "--retrieval_checkpoint_path", "",
+            "--n_devices", str(k), "-m", out_dir]
+    load = D.load_dataset
+    D.load_dataset = lambda a: D.SyntheticDataset(a, n_frames=MESH_FRAMES, width=SYS_W,
+                                                  height=SYS_H)
+    try:
+        meta, sys_, run_s, launches = run_entry(argv)
+    finally:
+        D.load_dataset = load
+    sm, fg = sys_.scene_model, sys_.backend.factor_graph
+    check(sm._mesh.devices == cards.devices, f"13e: run_system's mesh {sm._mesh}")
+    line = check_system_launches(sys_, launches, "13e")
+    ate = meta["trajectory"]["APE"]["rmse"]
+    check(sys_.frontend.lost_number == 0 and ate < 0.03, f"13e: run_system lost "
+          f"{sys_.frontend.lost_number} frames, ATE {ate} m")
+    check(fg.sharded_solves == len(fg.solves) >= 1, "13e: unsharded GN solves")
+    print(f"phase 13e run_system --oracle --n_devices {k} ({k} cards): {MESH_FRAMES} frames, "
+          f"{frame_ms_line(sys_, MESH_FRAMES, run_s)}; dp steps {sm.n_dp_steps}; {line}; ATE "
+          f"{ate:.5f} m; PSNR {meta['metrics'].get('PSNR', float('nan')):.2f} dB", flush=True)
+    view = len(sm.keyframes) - 1
+    big = random_scene(dev, N_BIG)
+    print(f"phase 13e {k} cards: {strip_render_line(sm, cards, view, 'the run scene')}; "
+          f"{strip_render_line(big, cards, 0, f'random scene of {N_BIG} Gaussians')}; "
+          f"dp step {dp_step_line(sm, cards, dev)}; GN "
+          f"{sharded_gn_line(dev, cards, fg, 'the run graph')}; "
+          f"{k1_from_another_card(cards.devices)}", flush=True)
+
+
+def mesh_phase(dev, cfg, ref) -> dict:
+    """Phase 13: the multi-device path (see the module docstring).  Returns
+    13d's launches."""
+    import torch
+    from artdeco_tpu_torch.parallel.mesh import Mesh
+
+    t0 = time.time()
+    virtual = Mesh([dev] * MESH_SLOTS)
+    sm8, fg8 = ref["scene_model"], ref["factor_graph"]
+    view = len(sm8.keyframes) - 1
+    big = random_scene(dev, N_BIG)
+    print(f"phase 13a strip renders, {MESH_SLOTS} slots sharing one card: "
+          f"{strip_render_line(sm8, virtual, view, f'phase 8 scene, keyframe {view}')}; "
+          f"{strip_render_line(big, virtual, 0, f'random scene of {N_BIG} Gaussians')}",
+          flush=True)
+    print(f"phase 13b dp step, {MESH_SLOTS} slots sharing one card: "
+          f"{dp_step_line(sm8, virtual, dev)}", flush=True)
+    print(f"phase 13c sharded GN, {MESH_SLOTS} slots sharing one card: "
+          f"{sharded_gn_line(dev, virtual, fg8)}", flush=True)
+    line, launches = mesh_system_line(dev, cfg, virtual, ref)
+    print(f"phase 13d System with the mesh: {line}", flush=True)
+    count = torch.cuda.device_count()
+    if count >= 2:
+        distinct_cards_phase(dev, cfg, 4 if count >= 4 else 2)
+    else:
+        print(f"phase 13e: this machine has {count} card; the distinct-card runs did not run",
+              flush=True)
+    print(f"phase 13 took {time.time() - t0:.1f} s", flush=True)
+    return launches
+
+
 def main() -> int:
     sys.path.insert(0, ROOT)
     try:
@@ -2021,15 +2526,19 @@ def main() -> int:
     # -- 12. the side models and the keypoint-SfM bootstrap ---------------------------
     k3f, k3f_launches = side_models_phase(dev, tcfg, tds)
 
+    # -- 13. the multi-device path ---------------------------------------------------
+    mesh_launches = mesh_phase(dev, tcfg, sys_ref)
+
     # each path's own counts: the mapper stream (3), tracking (7), the oracle
-    # system (8), the model-driven system (10), the streams from disk (11)
+    # system (8), the model-driven system (10), the streams from disk (11),
+    # the System with the mesh (13d)
     by_phase = {"fwd": {"phase 3": launches["fwd"], "phase 8": sys_launches["fwd"],
                         "phase 10": model_launches["fwd"]},
                 "bwd": {"phase 3": launches["bwd"], "phase 8": sys_launches["bwd"],
                         "phase 10": model_launches["bwd"]},
                 "k3": {"phase 7": k3_launches, "phase 8": sys_launches["k3"],
                        "phase 10": model_launches["k3"]}}
-    for part, counts in disk_launches.items():
+    for part, counts in (*disk_launches.items(), ("phase 13d", mesh_launches)):
         for k in ("fwd", "bwd", "k3"):
             by_phase[k][part] = counts[k]
     src = "artdeco_tpu_torch/csrc/composite.cu"

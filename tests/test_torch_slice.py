@@ -119,7 +119,7 @@ def test_mapper_slice_matches_jax():
                                atol=1e-3)
 
 
-PORT_MODULES = (   # the mapper, tracking, the backend, the models, the data path, the bootstrap
+PORT_MODULES = (   # the mapper, tracking, the backend, the models, the data path, the bootstrap, the mesh
     "mapper.scene_model", "runtime.system", "ops.splat.composite", "kernels",
     "geometry.lie", "geometry.projection", "geometry.robust", "geometry.uncertainty",
     "ops.matching", "ops.refine_dense", "models.oracle", "vslam.frame", "vslam.keyframes",
@@ -133,6 +133,8 @@ PORT_MODULES = (   # the mapper, tracking, the backend, the models, the data pat
     "ops.knn", "poses", "poses.feature_detector", "poses.guided_mvs", "poses.matcher",
     "poses.mini_ba", "poses.pnp", "poses.pose_initializer", "poses.ransac",
     "poses.triangulator", "models.xfeat", "models.depth_anything", "mapper.mono_depth",
+    # the multi-device path
+    "parallel", "parallel.mesh", "parallel.splats", "parallel.dp",
 )
 
 
@@ -160,4 +162,4 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.startswith("ok"), res.stdout
-    assert int(res.stdout.split()[1]) >= 74
+    assert int(res.stdout.split()[1]) >= 78

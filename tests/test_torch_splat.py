@@ -431,3 +431,30 @@ def test_kernels_match_plain_versions_on_card(cuda_device):
         assert (n(gk)[:, ~in_run] == 0).all() and (n(gk)[6:8] == 0).all()
         assert tcomp.composite_fwd.launches == f0 + 1
         assert tcomp.composite_bwd.launches == b0 + 2
+
+
+@pytest.mark.cuda
+def test_kernels_launch_on_the_data_card(cuda_device):
+    """K1 and K2 on cuda:1 while cuda:0 is the host thread's current device
+    (a mesh slot on a second card): each wrapper launches on its data's
+    card, and the results are the plain versions' there (the tolerances of
+    ``test_kernels_match_plain_versions_on_card``)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    sd, ps, pc, _, tx, ty, _ = _slot_data(9)
+    dev1 = torch.device("cuda", 1)
+    sd, ps, pc = (x.to(dev1) for x in (t(sd), t(ps), t(pc)))
+    with torch.cuda.device(0):
+        out, stop = tcomp.composite_fwd(sd, ps, pc, tx, ty)
+        g = torch.randn(out.shape, generator=torch.Generator(device=dev1).manual_seed(3),
+                        device=dev1)
+        gk = tcomp.composite_bwd(sd, ps, pc, tx, ty, g, stop)
+        assert torch.cuda.current_device() == 0
+    torch.cuda.synchronize(dev1)
+    ref, stop_ref = tcomp.composite_fwd_plain(sd, ps, pc, tx, ty)
+    gp = tcomp.composite_bwd_plain(sd, ps, pc, tx, ty, g, stop)
+    assert out.device == gk.device == dev1
+    np.testing.assert_allclose(n(out), n(ref), atol=1e-4)
+    np.testing.assert_array_equal(n(stop), n(stop_ref))
+    for rows in ([0, 1], [2, 3, 4], [5], list(range(8, 16))):
+        _close_rel(gk[rows], gp[rows], 1e-3)
