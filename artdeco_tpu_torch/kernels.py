@@ -18,6 +18,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -127,6 +128,17 @@ def check(err: int, what: str) -> None:
     """Raise when a launch returned a CUDA error code."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with error {err}")
+
+
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(wrapper, attr: str = "launches") -> None:
+    """Add one to ``wrapper.<attr>``, a kernel's launch count, under a lock:
+    the wrappers launch from several host threads (tracking, the mapper's
+    worker, the web viewer), and ``+= 1`` is not atomic across them."""
+    with _COUNT_LOCK:
+        setattr(wrapper, attr, getattr(wrapper, attr) + 1)
 
 
 def launch_info(name: str, *args) -> dict:

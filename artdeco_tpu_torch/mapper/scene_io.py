@@ -1,19 +1,22 @@
 """Scene export: Gaussian PLY, xyz+RGB PLY, COLMAP binary model, TUM
 keyframe poses, camera-frustum PLY, test renders.
 
-Port of the writers of ``artdeco_tpu/mapper/scene_io.py`` (and
-``read_gaussian_ply``, for round trips), and ``read_colmap_model``, the
-COLMAP dataset's reader.  The files are the JAX package's
-byte for byte given the same scene; the tensors come to the host once per
-file.  Test renders are written as PNG by a small zlib writer, so no image
-library is needed.  The viewer-side readers are not ported.
+Port of the writers of ``artdeco_tpu/mapper/scene_io.py``, its readers
+(``read_gaussian_ply``, ``load_scene_for_viewing`` for the viewers) and
+``read_colmap_model``, the COLMAP dataset's reader.  The files are the JAX
+package's byte for byte given the same scene; the tensors come to the host
+once per file.  Test renders are written as PNG by a small zlib writer, so
+no image library is needed.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import glob
 import json
 import os
 import struct
+import types
 import zlib
 from typing import Dict, List
 
@@ -118,6 +121,86 @@ def read_gaussian_ply(path: str) -> dict:
     return dict(xyz=xyz, f_dc=f_dc, f_rest=f_rest, opacity=cols["opacity"][:, None],
                 scaling=np.stack([cols[f"scale_{i}"] for i in range(3)], -1),
                 rotation=np.stack([cols[f"rotation_{i}"] for i in range(4)], -1))
+
+
+@dataclasses.dataclass
+class ViewerScene:
+    """What the viewers read of a scene: ``slab``, ``gfeat.val``, ``mlp``,
+    ``cfg`` and the camera it was saved with (``width``, ``height``, ``f``)."""
+    slab: object
+    gfeat: object
+    mlp: object
+    cfg: object
+    width: int
+    height: int
+    f: float
+
+
+def load_scene_for_viewing(run_dir: str, focal: float = None, device=None) -> ViewerScene:
+    """A renderable scene from a saved run directory (its ``**/gs.ply``, or
+    a ``.ply`` path) on ``device`` (default: the CUDA device).
+
+    The PLY is MLP-baked (``save_gaussian_ply``), so the scene renders
+    through an identity ``MlpCov``: zero weights and the output bias
+    [20, 20, 20, 1, 1, 1, 1] (sigmoid(20) is 1 in float32, unit gains keep
+    the baked rotation), one cluster of zero features, and ``d_max`` at
+    1e10 (no LOD culling).  Width, height and focal come from
+    ``metadata.json``'s ``config`` (else 640x360 and ``focal`` or 500); a
+    metadata file that cannot be read raises.
+    """
+    from artdeco_tpu_torch.device import resolve
+    from artdeco_tpu_torch.mapper import gaussians as G
+    from artdeco_tpu_torch.mapper.config import MapperConfig
+    from artdeco_tpu_torch.mapper.scene_model import MlpCov
+
+    device = resolve(device)
+    candidates = (glob.glob(os.path.join(run_dir, "pcd", "gs.ply"))
+                  + glob.glob(os.path.join(run_dir, "**", "gs.ply"), recursive=True)
+                  + ([run_dir] if run_dir.endswith(".ply") else []))
+    if not candidates:
+        raise FileNotFoundError(f"no gs.ply under {run_dir}")
+    fields = read_gaussian_ply(candidates[0])
+    n = len(fields["xyz"])
+    sh_degree = int(round(np.sqrt(1 + fields["f_rest"].shape[1]))) - 1
+
+    width, height, f = 640, 360, focal or 500.0
+    meta_path = os.path.join(run_dir, "metadata.json")
+    if os.path.isfile(meta_path):
+        with open(meta_path) as fh:
+            meta = json.load(fh)
+        cfgm = meta.get("config", meta)
+        width = int(cfgm.get("width", width))
+        height = int(cfgm.get("height", height))
+        f = float(cfgm.get("f", cfgm.get("focal", f)))
+
+    cfg = MapperConfig(capacity=max(n, 1), sh_degree=sh_degree, local_feat_dim=1,
+                       global_feat_dim=1, cluster_capacity=1, voxel_table_size=2)
+    slab = G.create_slab(max(n, 1), sh_degree, 1, 1e-4, device)
+    f32 = dict(dtype=torch.float32, device=device)
+    # global + local feature -> a 2-wide MLP input
+    mlp = MlpCov(w1=torch.zeros(2, 2, **f32), b1=torch.zeros(2, **f32),
+                 w2=torch.zeros(2, 7, **f32),
+                 b2=torch.tensor([20.0, 20.0, 20.0, 1.0, 1.0, 1.0, 1.0], **f32))
+    return ViewerScene(slab=dataclasses_replace_slab(slab, fields, n),
+                       gfeat=types.SimpleNamespace(val=torch.zeros(1, 1, **f32)),
+                       mlp=mlp, cfg=cfg, width=width, height=height, f=f)
+
+
+def dataclasses_replace_slab(slab, fields: dict, n: int):
+    """Scatter loaded PLY fields into a fresh slab's first ``n`` rows; a
+    field whose trailing shape differs from the slab's (an ``f_rest`` of
+    another SH degree) is skipped."""
+    cap, device = slab.capacity, slab.xyz.device
+    upd = dict(active=torch.arange(cap, device=device) < n)
+    for key in ("xyz", "f_dc", "f_rest", "scaling", "rotation", "opacity"):
+        base = getattr(slab, key)
+        v = np.asarray(fields[key], np.float32)
+        if v.shape[1:] != tuple(base.shape[1:]):
+            continue
+        upd[key] = base.clone()
+        upd[key][:n] = torch.as_tensor(v, device=device)
+    upd["d_max"] = torch.full((cap, 1), 1e10, dtype=torch.float32, device=device)
+    return dataclasses.replace(slab, **upd)
 
 
 def save_xyz_rgb_ply(path: str, scene_model) -> int:

@@ -142,10 +142,7 @@ def window_argmax(D11b, D21b, p, valid, radius: int, d_max: int, d_min: int = 1,
             radius, d_max, d_min, init_score, p_out.data_ptr(), score.data_ptr(),
             torch.cuda.current_stream(p.device).cuda_stream)
     kernels.check(err, "window_argmax")
-    if f32:
-        window_argmax.launches_f32 += 1
-    else:
-        window_argmax.launches += 1
+    kernels.count_launch(window_argmax, "launches_f32" if f32 else "launches")
     return p_out, score
 
 

@@ -168,7 +168,7 @@ def composite_fwd(slot_data, pad_starts, pad_counts, tiles_x, tiles_y):
             torch.cuda.current_stream(slot_data.device).cuda_stream,
         )
     kernels.check(err, "composite_fwd")
-    composite_fwd.launches += 1
+    kernels.count_launch(composite_fwd)
     return out, stop
 
 
@@ -300,7 +300,7 @@ def composite_bwd(slot_data, pad_starts, pad_counts, tiles_x, tiles_y, g_out, st
             grad.data_ptr(), torch.cuda.current_stream(slot_data.device).cuda_stream,
         )
     kernels.check(err, "composite_bwd")
-    composite_bwd.launches += 1
+    kernels.count_launch(composite_bwd)
     return grad
 
 

@@ -22,8 +22,11 @@ loader where it applies.  The runner is MASt3R (``--model_size full``: ViT-L in 
 weights; or, with ``--oracle``, the synthetic dataset's ground-truth
 pointmaps.  ``--n_devices N`` runs the mapper and the backend's GN over the
 first N cards (``System.enable_mesh``; with ``--device cpu``, N slots on the
-CPU).  The JAX package's pre-converted flax ``.npz`` checkpoints and the web
-viewer are not ported.
+CPU).  ``--viewer_mode web`` serves the web viewer while the system runs
+(``runtime/webviewer.py``: WebSocket on ``--ip``:``--port``, the page on
+``--port`` + 1); ``local``, ``server`` and ``none`` serve nothing, as in the
+JAX package.  The JAX package's pre-converted flax ``.npz`` checkpoints are
+not ported.
 """
 
 import os
@@ -68,8 +71,6 @@ def main(argv=None):
     from artdeco_tpu_torch.utils.config import load_config
 
     args = get_args(argv)
-    if args.viewer_mode == "web":
-        raise NotImplementedError("--viewer_mode web: the viewers are not ported")
     device = resolve(args.device)
     float32_policy()
     np.random.seed(0)
@@ -97,11 +98,25 @@ def main(argv=None):
     system = System(args, config, dataset, runner, device=device)
     if system.auto_calib is not None:
         print(f"auto-calibration: {system.auto_calib}")
-    system.run()
-    print(f"loader: {system.loader}")
-    for _ in getattr(args, "save_at_finetune_epoch", []) or []:
-        system.finetune(1)
-    meta = system.save(args.model_path or "output")
+    page = None
+    if args.viewer_mode == "web":
+        from artdeco_tpu_torch.runtime.webviewer import WebViewer, serve_static_page
+
+        system.viewer = WebViewer(system.scene_model, ip=args.ip, port=args.port)
+        system.viewer.start_background()
+        page = serve_static_page(args.ip, args.port + 1)
+        print(f"web viewer: http://{args.ip}:{args.port + 1}/ (ws on :{args.port})")
+    try:
+        system.run()
+        print(f"loader: {system.loader}")
+        for _ in getattr(args, "save_at_finetune_epoch", []) or []:
+            system.finetune(1)
+        meta = system.save(args.model_path or "output")
+    finally:
+        if page is not None:
+            system.viewer.shutdown()
+            page.shutdown()
+            page.server_close()
     print(f"done: {meta['n_frames']} frames, {meta['n_keyframes']} keyframes, "
           f"{meta['n_gaussians']} gaussians, {meta['FPS']:.2f} FPS")
     if meta.get("trajectory"):

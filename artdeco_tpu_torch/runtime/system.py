@@ -27,7 +27,9 @@ with the backend's messages, and the mapper-only runs drive it with
 
 ``--n_devices N`` (N > 1) trains the mapper keyframe-data-parallel over a
 mesh of N devices and shards the backend's dense GN over its edges
-(``System.enable_mesh``, ``parallel/``).  Not ported: the viewers and the
+(``System.enable_mesh``, ``parallel/``).  The web viewer
+(``runtime/webviewer.py``) reads ``System.scene_model`` from a thread of its
+own; ``run_system.py`` attaches it as ``System.viewer``.  Not ported: the
 AOT prewarm machinery.
 """
 
@@ -555,6 +557,7 @@ class System:
 
             self.enable_mesh(make_mesh(n_dev, self.device))
         self.runtimes = Runtimes()
+        self.viewer = None               # the web viewer run_system attaches
         self.start_time = None
         self.n_frames = 0
         self.frame_s: list = []     # host seconds per frame of the stream loop

@@ -10,8 +10,10 @@ the ``MapperConfig`` defaults, the tracking frontend (``Frontend`` +
 ``config/base.yaml`` as it is, the full ``System`` on the oracle stream,
 the model-driven ``System`` (full-width MASt3R and Pi3) through
 ``run_system.main``, streams read from image files (an image folder and a
-TUM sequence) through the entry point, and the multi-device path (the
-data-parallel mapper, row-strip renders, the edge-sharded GN).
+TUM sequence) through the entry point, the multi-device path (the
+data-parallel mapper, row-strip renders, the edge-sharded GN), and the
+viewers (saved scenes loaded back, turntables, the web viewer alone and
+beside a running ``System``).
 
 1. device: a CUDA device is required; prints ``nvidia-smi``'s name and
    power limit; builds the CUDA kernels from ``artdeco_tpu_torch/csrc``
@@ -79,7 +81,7 @@ data-parallel mapper, row-strip renders, the edge-sharded GN).
    (device ms, peak memory) and the accurate matcher once over 23
    candidates (fractions finite, in [0, 1]); (c) ``run_system.main`` as
    users run it without ``--oracle`` (``--model_size full
-   --accurate_loop_closure``, no checkpoint: random weights) over a 32-frame
+   --accurate_loop_closure``, no checkpoint: random weights) over a 16-frame
    512x384 synthetic stream, saved with LPIPS: K1, K2 and K3 must each have
    launched, the metrics must be finite and the entry point must have set
    the float32 policy; prints ms per frame, FPS, the stage split,
@@ -93,7 +95,7 @@ data-parallel mapper, row-strip renders, the edge-sharded GN).
    ``SelfCapturedDataset`` and run by ``System.run`` through the Python
    loader (PNG decode, ``to_slam``) with phase 8's arguments: keyframes,
    lost frames, every pose and the test PSNR must be bitwise phase 8's;
-   (b) the same folder (its first 120 frames) through ``run_system.main``
+   (b) the same folder (its first 80 frames) through ``run_system.main``
    with ``--calib`` and ``--oracle``, the loader the entry point chooses:
    0 lost, phase 8's keyframes, ATE < 0.03 m, ``save``'s files; (c) a TUM
    sequence at 640x480 (``rgb.txt``, ``groundtruth.txt``) through
@@ -139,16 +141,39 @@ data-parallel mapper, row-strip renders, the edge-sharded GN).
    times each, timed beside a one-slot step, with the replica copy's
    device time; (c) the edge-sharded GN against the unsharded one on the
    JAX package's dry-run problem (64 edges) and on phase 8's factor graph
-   at its final (P, E); (d) ``System.run`` over phase 8's first 120 frames
+   at its final (P, E); (d) ``System.run`` over phase 8's first 80 frames
    with ``System.enable_mesh``: 0 lost, training only through dp steps, K1
    = 4 x (dp steps + sharded renders) + renders, K2 = 4 x dp steps, K3 as
    in phase 8, every GN solve sharded, ATE < 0.03 m; ms per frame, FPS,
    keyframes, ATE, PSNR and Gaussians beside phase 8's.  (e) On a machine
    with 2 or more cards, ``run_system --oracle --n_devices k`` (k = 2 or
-   4 distinct cards) on 120 frames, then (a)-(c) over the k cards on that
+   4 distinct cards) on 80 frames, then (a)-(c) over the k cards on that
    run's scene and graph, and K1 launched from a thread whose current
    device is another card; with one card, one line says that (e) did not
    run.
+
+14. the viewers (``runtime/gaussianviewer.py``, ``runtime/webviewer.py``,
+   ``scene_io.load_scene_for_viewing``): (a) phase 8's saved directory and
+   a saved random scene of 10^5 Gaussians loaded back onto the card, each
+   rendered at keyframe 0's view against the live scene with ``d_max``
+   lifted (RGB within ``LOADED_TOL`` but on ``LOADED_CUT_SHARE`` of the
+   pixels, where a pixel-Gaussian pair may cross the 1/255 alpha cut);
+   (b) ``GaussianViewer.export_turntable`` of 60 frames at 640x360 in the
+   splat, depth and alpha modes on both loaded scenes: every PNG decodes
+   (the port's own decoder) to the turntable's frame bit for bit, the MP4
+   holds 60 JPEG samples of 640x360, K1 launches equal the renders; ms a
+   frame split into the render (device-synchronised), the copy to the
+   host, the PNG and the JPEG encodes; (c) ``WebViewer`` on 127.0.0.1 and
+   ``serve_static_page`` on the next port, driven by a standard-library
+   client (``WsClient``): requests of 1920x1080 (rendered at 960x540) in
+   the splat, depth and ellipsoid modes and with snapToLast on both live
+   scenes, every reply a JPEG of 960x540, no failed reply, ``GET /`` the
+   port's page; the median reply ms, its split and the replies a second;
+   (d) 11b's run again through ``run_system.main --viewer_mode web`` with
+   the client polling as the page does for the whole run: keyframes, lost
+   frames, every pose and the test PSNR bitwise 11b's, K1 = steps +
+   renders + the viewer's renders, K2 and K3 as in 11b, at least one
+   reply per 2 s, no failed reply; ms per frame and FPS beside 11b's.
 
 Prints one line per phase, then a JSON line of the kernels and, last,
 ``{"ok": true, "device": {...}}``.  Any failed check raises: the exit code
@@ -188,9 +213,10 @@ MODEL_W, MODEL_H = 512, 384  # a MASt3R frame: 32x24 tokens
 MODEL_EDGES = 4              # edges of the timed symmetric match (8 decoded pairs)
 MODEL_TIMED = 5
 PI3_FRAMES = 24              # the accurate matcher's window (23 candidates and the query)
-SYS10_FRAMES = 32            # depth of the model-driven System run
-DISK_ENTRY_FRAMES = 120      # phase 11b: the entry point on the first frames of 11a's folder
-TUM_W, TUM_H, TUM_SLAM, TUM_FRAMES, TUM_TEST_HOLD = 640, 480, 512, 120, 30   # phase 11c
+SYS10_FRAMES = 16            # depth of the model-driven System run
+DISK_ENTRY_FRAMES = 80       # phase 11b (and 14d): the entry point on the first frames of
+                             # 11a's folder, its keyframes 0 and 70
+TUM_W, TUM_H, TUM_SLAM, TUM_FRAMES, TUM_TEST_HOLD = 640, 480, 512, 80, 30   # phase 11c
 CALIB_FRAMES = 8             # phase 11d
 XFEAT_TOPK = (4096, 1024)    # phase 12a
 DAV2_ENCODER = "vitl"        # phase 12b: dav2_config("vitl"), the released ViT-L
@@ -199,8 +225,12 @@ SOLVER_POINTS = 1024         # phase 12d
 KNN_POINTS = 100_000         # phase 12e
 F32_TRACK_FRAMES = 24        # phase 12f
 MESH_SLOTS = 4               # phase 13: the virtual mesh, 4 slots on one card
-MESH_FRAMES = 120            # phase 13d: the first 120 frames of phase 8's stream
+MESH_FRAMES = 80             # phase 13d: the first 80 frames of phase 8's stream
 MESH_TIMED = 5
+VIEW_W, VIEW_H, VIEW_FRAMES = 640, 360, 60   # phase 14b: visualize_gs's defaults
+WEB_RES = (1920, 1080)       # phase 14c, d: the client's window (rendered at 960x540)
+LOADED_TOL = 1e-5            # phase 14a: a loaded scene's RGB against the live render
+LOADED_CUT_SHARE = 1e-4      # ... but for pixels where a pair crosses the 1/255 alpha cut
 # The H100 machine this script targets has no libjpeg: g++ there reads
 # "fatal error: jpeglib.h: No such file or directory", so the native
 # loader cannot be built on it.  By this fixed decision phase 11 runs the
@@ -663,7 +693,8 @@ def check_system_launches(sys_, launches: dict, what: str) -> str:
     K1 = training steps + renders, K2 = steps, K3 = tracked matches + the
     backend's symmetric-match rows + its pair matches; with a mesh of n
     slots, a dp step launches K1 and K2 n times each and a sharded render
-    K1 n times.  Returns the line that says so."""
+    K1 n times; a web viewer attached to the run adds its renders to K1.
+    Returns the line that says so."""
     fe, bk, fg, sm = sys_.frontend, sys_.backend, sys_.backend.factor_graph, sys_.scene_model
     tracked = fe.tracker.timers["trk.match"][1]
     k3_want = tracked + fg.match_rows + bk.pair_matches
@@ -671,9 +702,12 @@ def check_system_launches(sys_, launches: dict, what: str) -> str:
           f"tracked + {fg.match_rows} symmetric rows + {bk.pair_matches} pair matches")
     n = sm._mesh.size if sm._mesh is not None else 0
     steps = sm.n_train_steps + n * sm.n_dp_steps
-    renders = sm.n_renders + n * sm.n_sharded_renders
+    viewed = sys_.viewer.renders if sys_.viewer is not None else 0
+    renders = sm.n_renders + n * sm.n_sharded_renders + viewed
     mesh = (f" + {n} x {sm.n_dp_steps} dp steps" if n else "",
             f" + {n} x {sm.n_sharded_renders} sharded renders" if n else "")
+    if sys_.viewer is not None:
+        mesh = (mesh[0], mesh[1] + f" + {viewed} web viewer renders")
     check(launches["bwd"] == steps > 0, f"{what}: K2 launches {launches['bwd']} != "
           f"{sm.n_train_steps} training steps{mesh[0]}")
     check(launches["fwd"] == steps + renders,
@@ -753,9 +787,11 @@ def full_system_phase(dev, cfg):
           f"message), map {rt.get('map', 0):.2f} (per work item, worker thread); peak memory "
           f"{peak_mib:.1f} MiB", flush=True)
     kf_T = sys_.keyframes.T_WC[:n_kf].copy()
-    # phase 13 runs the multi-device path on this run's scene and graph
-    ref = dict(ds=ds, kf_frames=kf_frames, est=fe.estimated_trajectory(), psnr=psnr,
-               lost=fe.lost_number, ms=statistics.median(frame_ms), fps=SYS_FRAMES / run_s,
+    # phase 13 runs the multi-device path on this run's scene and graph,
+    # phase 14 the viewers on its scene and its saved directory
+    ref = dict(ds=ds, out_dir=out_dir, kf_frames=kf_frames, est=fe.estimated_trajectory(),
+               psnr=psnr, lost=fe.lost_number, ms=statistics.median(frame_ms),
+               fps=SYS_FRAMES / run_s,
                ate=ate, n_gaussians=meta["n_gaussians"], scene_model=sm, factor_graph=fg)
     del sys_, fe, bk, fg, sm
     gc.collect()
@@ -1215,7 +1251,9 @@ def frame_ms_line(sys_, n: int, run_s: float) -> str:
 
 def disk_stream_phase(dev, cfg, ref) -> tuple:
     """Phase 11: streams from disk (see the module docstring).  ``ref`` is
-    phase 8's in-memory run.  Returns the kernels' launch counts by part."""
+    phase 8's in-memory run.  Returns the kernels' launch counts by part
+    and what phase 14d holds its run to: 11b's argv, keyframes, lost
+    frames, every pose, test PSNR, ms per frame and FPS."""
     import tempfile
     import warnings
 
@@ -1306,6 +1344,11 @@ def disk_stream_phase(dev, cfg, ref) -> tuple:
             sys_.dataset[i][0])).max()) for i in range(8))
         pf.close()
         diff = f"; native SLAM tensors within {err:.3g} of to_slam's (8 frames)"
+    disk_ref = dict(argv=argv[:-2], kf=kf, lost=sys_.frontend.lost_number,
+                    est=sys_.frontend.estimated_trajectory(),
+                    psnr=meta["metrics"].get("PSNR", float("nan")),
+                    ms=statistics.median([1e3 * x for x in sys_.frame_s]),
+                    fps=DISK_ENTRY_FRAMES / run_s)
     print(f"phase 11b entry point run_system.main {' '.join(argv[:-2])}: loader "
           f"{sys_.loader}{diff}; {DISK_ENTRY_FRAMES} frames, keyframes {kf}, lost "
           f"{sys_.frontend.lost_number}, ATE RMSE {ate:.5f} m, test PSNR "
@@ -1386,7 +1429,7 @@ def disk_stream_phase(dev, cfg, ref) -> tuple:
     del sys_
     gc.collect()
     torch.cuda.empty_cache()
-    return launches
+    return launches, disk_ref
 
 
 # ---------------------------------------------------------------------------
@@ -2265,6 +2308,355 @@ def mesh_phase(dev, cfg, ref) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the viewers
+# ---------------------------------------------------------------------------
+
+class WsClient:
+    """A minimal WebSocket client on the standard library, apart from the
+    port's server: the Upgrade handshake (the accept key checked), masked
+    text frames out, whole frames in."""
+
+    def __init__(self, port: int, timeout: float = 60.0):
+        import base64
+        import hashlib
+        import socket
+
+        self.sock = socket.create_connection(("127.0.0.1", port), timeout=timeout)
+        key = base64.b64encode(os.urandom(16)).decode()
+        self.sock.sendall((f"GET / HTTP/1.1\r\nHost: 127.0.0.1:{port}\r\nUpgrade: websocket\r\n"
+                           f"Connection: Upgrade\r\nSec-WebSocket-Key: {key}\r\n"
+                           "Sec-WebSocket-Version: 13\r\n\r\n").encode())
+        self.buf = b""
+        while b"\r\n\r\n" not in self.buf:
+            self._fill()
+        head, self.buf = self.buf.split(b"\r\n\r\n", 1)
+        accept = base64.b64encode(hashlib.sha1(
+            (key + "258EAFA5-E914-47DA-95CA-C5AB0DC85B11").encode()).digest())
+        check(head.startswith(b"HTTP/1.1 101") and b"Sec-WebSocket-Accept: " + accept in head,
+              f"WebSocket handshake answered {head[:120]!r}")
+
+    def _fill(self) -> None:
+        chunk = self.sock.recv(1 << 20)
+        if not chunk:
+            raise ConnectionError("the server closed the socket")
+        self.buf += chunk
+
+    def _take(self, n: int) -> bytes:
+        while len(self.buf) < n:
+            self._fill()
+        out, self.buf = self.buf[:n], self.buf[n:]
+        return out
+
+    def recv(self):
+        b0, b1 = self._take(2)
+        check(b0 & 0x80 and not b1 & 0x80, f"server frame header {b0:#x} {b1:#x}")
+        n = b1 & 0x7F
+        if n >= 126:
+            n = int.from_bytes(self._take(2 if n == 126 else 8), "big")
+        data, op = self._take(n), b0 & 0x0F
+        if op == 0x8:
+            raise ConnectionError(f"closed by the server, code {int.from_bytes(data[:2], 'big')}")
+        return data.decode() if op == 0x1 else data
+
+    def _send(self, op: int, payload: bytes) -> None:
+        n, mask = len(payload), os.urandom(4)
+        size = (bytes([0x80 | n]) if n < 126 else bytes([0x80 | 126]) + n.to_bytes(2, "big")
+                if n < 1 << 16 else bytes([0x80 | 127]) + n.to_bytes(8, "big"))
+        body = (np.frombuffer(payload, np.uint8) ^ np.resize(np.frombuffer(mask, np.uint8), n))
+        self.sock.sendall(bytes([0x80 | op]) + size + mask + body.tobytes())
+
+    def send_text(self, text: str) -> None:
+        self._send(0x1, text.encode())
+
+    def close(self) -> None:
+        try:
+            self._send(0x8, (1000).to_bytes(2, "big"))
+            while True:
+                self.recv()
+        except (ConnectionError, OSError):
+            pass
+        self.sock.close()
+
+
+def free_port_pair() -> int:
+    """A port p on 127.0.0.1 with p + 1 free too: the viewer's WebSocket
+    and its page."""
+    import socket
+
+    for _ in range(100):
+        with socket.socket() as a, socket.socket() as b:
+            a.bind(("127.0.0.1", 0))
+            p = a.getsockname()[1]
+            try:
+                b.bind(("127.0.0.1", p + 1))
+            except OSError:
+                continue
+            return p
+    raise RuntimeError("no two free neighbouring ports on 127.0.0.1")
+
+
+def web_request(Rt_w2c: np.ndarray, mode: str, snap: bool = False) -> str:
+    """The page's request for the view ``Rt_w2c``: its column-major c2w
+    with Y and Z flipped (the server flips them back and inverts)."""
+    pose = np.linalg.inv(np.asarray(Rt_w2c, np.float64))
+    pose[:3, 1] *= -1
+    pose[:3, 2] *= -1
+    return json.dumps(dict(res_x=WEB_RES[0], res_y=WEB_RES[1], pose=pose.T.flatten().tolist(),
+                           snapToLast=snap, mode=mode, state="play"))
+
+
+def stage_ms(timers: dict, n: int) -> str:
+    return ", ".join(f"{k} {1e3 * v[0] / max(n, 1):.2f}" for k, v in timers.items())
+
+
+def loaded_scene_line(sm, run_dir: str, Rt, dev, what: str) -> tuple:
+    """Phase 14a on one scene: ``load_scene_for_viewing`` of its saved
+    directory, rendered at ``Rt`` against the live scene with ``d_max``
+    lifted.  Returns (the line, the loaded scene)."""
+    import torch
+    from artdeco_tpu_torch.mapper.scene_io import load_scene_for_viewing
+    from artdeco_tpu_torch.runtime.gaussianviewer import render_view
+
+    vs = load_scene_for_viewing(run_dir, device=dev)
+    check((vs.width, vs.height, vs.f) == (sm.width, sm.height, sm.f),
+          f"phase 14a {what}: loaded camera {vs.width}x{vs.height} f {vs.f}")
+    check(int(vs.slab.active.sum()) == sm.n_active_gaussians,
+          f"phase 14a {what}: {int(vs.slab.active.sum())} Gaussians loaded of "
+          f"{sm.n_active_gaussians}")
+    live_slab = dataclasses.replace(sm.slab, d_max=torch.full_like(sm.slab.d_max, 1e10))
+    loaded = render_view(vs, Rt, sm.width, sm.height)["render"]
+    live = render_view(sm, Rt, sm.width, sm.height, slab=live_slab)["render"]
+    diff = (loaded - live).abs().amax(0)
+    err, share = float(diff.max()), float((diff > LOADED_TOL).float().mean())
+    check(share <= LOADED_CUT_SHARE and float(live.max()) > 0.1,
+          f"phase 14a {what}: loaded render off the live one by up to {err:.3g} on "
+          f"{share:.3g} of the pixels (> {LOADED_TOL})")
+    return (f"{what}: {sm.n_active_gaussians} Gaussians loaded, RGB within {err:.3g} of the "
+            f"live render with d_max lifted ({share:.3g} of the pixels over {LOADED_TOL})"), vs
+
+
+def turntable_line(vs, out_dir: str, what: str) -> tuple:
+    """Phase 14b on one loaded scene: ``export_turntable`` in each mode;
+    every PNG decodes to its rendered frame bit for bit, the MP4 holds a
+    JPEG of VIEW_W x VIEW_H for every frame, K1 launches equal the
+    renders.  Returns (the line, K1 launches)."""
+    from artdeco_tpu_torch.dataio.image_io import read_png
+    from artdeco_tpu_torch.dataio.jpeg import jpeg_size
+    from artdeco_tpu_torch.dataio.video import read_mp4_samples
+    from artdeco_tpu_torch.ops.splat import composite as C
+    from artdeco_tpu_torch.runtime.gaussianviewer import GaussianViewer
+
+    parts, fwd = [], 0
+    for mode in ("splat", "depth", "alpha"):
+        viewer = GaussianViewer(vs, VIEW_W, VIEW_H)
+        viewer.sync_timing = True
+        frames, turntable = [], viewer.turntable
+        # keep the frames the export renders, to hold its files to them
+        viewer.turntable = lambda *a: frames.extend(turntable(*a)) or frames
+        C.composite_fwd.launches = 0
+        d = os.path.join(out_dir, mode)
+        vid = viewer.export_turntable(d, VIEW_FRAMES, mode)
+        check(C.composite_fwd.launches == viewer.renders == VIEW_FRAMES,
+              f"phase 14b {what} {mode}: K1 launches {C.composite_fwd.launches} for "
+              f"{viewer.renders} renders")
+        fwd += C.composite_fwd.launches
+        bad = [i for i, fr in enumerate(frames)
+               if not np.array_equal(read_png(os.path.join(d, f"{mode}_{i:04d}.png")), fr)]
+        check(not bad, f"phase 14b {what} {mode}: PNG frames {bad[:5]} differ from the renders")
+        mp4 = read_mp4_samples(vid)
+        sizes = {jpeg_size(s) for s in mp4["samples"]}
+        check(len(mp4["samples"]) == VIEW_FRAMES and sizes == {(VIEW_W, VIEW_H)}
+              and mp4["kind"] == "jpeg" and mp4["fps"] == 30.0,
+              f"phase 14b {what} {mode}: MP4 of {len(mp4['samples'])} samples, sizes {sizes}")
+        check(max(int(fr.max()) for fr in frames) > 0, f"phase 14b {what} {mode}: black frames")
+        parts.append(f"{mode} ({stage_ms(viewer.timers, VIEW_FRAMES)})")
+    return (f"{what}: {VIEW_FRAMES} frames {VIEW_W}x{VIEW_H} a mode, PNGs bit for bit, MP4 "
+            f"of {VIEW_FRAMES} JPEG samples, K1 = renders; ms a frame (render "
+            f"device-synchronised): " + "; ".join(parts)), fwd
+
+
+def web_replies_line(sm, Rt, what: str) -> tuple:
+    """Phase 14c on one scene: the WebViewer on 127.0.0.1 and its page on
+    the next port; the splat, depth and ellipsoid modes and snapToLast at
+    WEB_RES, each reply a JPEG of half that.  Returns (the line, K1
+    launches)."""
+    import http.client
+
+    from artdeco_tpu_torch.dataio.jpeg import jpeg_size
+    from artdeco_tpu_torch.ops.splat import composite as C
+    from artdeco_tpu_torch.runtime.webviewer import STATIC_DIR, WebViewer, serve_static_page
+
+    viewer = WebViewer(sm, ip="127.0.0.1", port=free_port_pair())
+    C.composite_fwd.launches = 0
+    viewer.start_background()
+    httpd = serve_static_page("127.0.0.1", viewer.port + 1)
+    try:
+        conn = http.client.HTTPConnection("127.0.0.1", viewer.port + 1, timeout=30)
+        conn.request("GET", "/")
+        page = conn.getresponse().read()
+        conn.close()
+        with open(os.path.join(STATIC_DIR, "index.html"), "rb") as f:
+            check(page == f.read(), f"phase 14c {what}: GET / is not the viewer page")
+        client = WsClient(viewer.port)
+        asks = [("splat", False), ("depth", False), ("ellipsoid", False), ("splat", True)]
+        for warm in range(2):                      # the first round warms up
+            viewer.timers.clear()
+            viewer.sync_timing = bool(warm)
+            ms = []
+            for mode, snap in asks * (1 + 2 * warm):
+                header = json.loads(client.recv())
+                t0 = time.perf_counter()
+                client.send_text(web_request(Rt, mode, snap))
+                reply = client.recv()
+                ms.append(1e3 * (time.perf_counter() - t0))
+                check(isinstance(reply, bytes)
+                      and jpeg_size(reply) == (WEB_RES[0] // 2, WEB_RES[1] // 2),
+                      f"phase 14c {what} {mode}: reply {reply[:16]!r}")
+        client.close()
+        n = len(ms)
+    finally:
+        viewer.shutdown()
+        httpd.shutdown()
+        httpd.server_close()
+    check(viewer.failures == 0 and C.composite_fwd.launches == viewer.renders == 4 + 3 * 4,
+          f"phase 14c {what}: failures {viewer.failures}, K1 {C.composite_fwd.launches}, "
+          f"renders {viewer.renders}")
+    med = statistics.median(ms)
+    return (f"{what}: header keys {sorted(header)}; {n} replies of "
+            f"{WEB_RES[0] // 2}x{WEB_RES[1] // 2} JPEG (splat, depth, ellipsoid, snapToLast), "
+            f"0 failures, K1 = renders {viewer.renders}; reply {med:.2f} ms (median, client "
+            f"round trip), {1e3 / med:.1f} replies/s; ms a reply (render device-synchronised): "
+            f"{stage_ms(viewer.timers, n)}"), C.composite_fwd.launches
+
+
+def poll_viewer(port: int, stop, seen: list, errors: list) -> None:
+    """Phase 14d's client: connects once the viewer is up and asks for a
+    splat render at WEB_RES after every header, as the page does, until
+    ``stop``; ``seen`` gets each reply's (seconds, JPEG size)."""
+    from artdeco_tpu_torch.dataio.jpeg import jpeg_size
+
+    eye = np.eye(4)
+    while not stop.is_set():
+        try:
+            client = WsClient(port, timeout=10)
+        except OSError:
+            time.sleep(0.05)
+            continue
+        try:
+            while not stop.is_set():
+                client.recv()
+                t0 = time.perf_counter()
+                client.send_text(web_request(eye, "splat", snap=True))
+                reply = client.recv()
+                seen.append((time.perf_counter() - t0, jpeg_size(reply)))
+        except (ConnectionError, OSError) as e:
+            errors.append(repr(e))
+        finally:
+            client.close()
+
+
+def viewers_phase(dev, ref, disk_ref) -> dict:
+    """Phase 14: the viewers (see the module docstring).  ``ref`` is phase
+    8's run, ``disk_ref`` phase 11b's.  Returns K1 launches of (a)-(d) and
+    14d's K2 and K3."""
+    import tempfile
+    import threading
+
+    import torch
+    from artdeco_tpu_torch.mapper import keyframe as KF
+    from artdeco_tpu_torch.mapper.scene_io import save_gaussian_ply
+    from artdeco_tpu_torch.ops.splat import composite as C
+
+    t_phase = time.time()
+    launches = {}
+    sm8 = ref["scene_model"]
+    big = random_scene(dev, N_BIG)
+    big_dir = tempfile.mkdtemp(prefix="chip_smoke_big_")
+    os.makedirs(os.path.join(big_dir, "point_clouds"))
+    save_gaussian_ply(os.path.join(big_dir, "point_clouds", "gs.ply"), big)
+    with open(os.path.join(big_dir, "metadata.json"), "w") as f:
+        json.dump({"config": {"width": big.width, "height": big.height, "f": big.f}}, f)
+    scenes = [("phase 8 scene", sm8, ref["out_dir"], KF.get_Rt(sm8.pool, 0)),
+              (f"random scene of {N_BIG} Gaussians", big, big_dir, torch.eye(4, device=dev))]
+
+    # (a) round trip
+    C.composite_fwd.launches = 0
+    lines, loaded = [], []
+    for what, sm, run_dir, Rt in scenes:
+        line, vs = loaded_scene_line(sm, run_dir, Rt, dev, what)
+        lines.append(line)
+        loaded.append(vs)
+    launches["phase 14a"] = {"fwd": C.composite_fwd.launches}
+    print(f"phase 14a saved scenes loaded: {'; '.join(lines)}", flush=True)
+
+    # (b) turntables
+    out = tempfile.mkdtemp(prefix="chip_smoke_turntable_")
+    lines, fwd = [], 0
+    for i, ((what, *_), vs) in enumerate(zip(scenes, loaded)):
+        line, n = turntable_line(vs, os.path.join(out, str(i)), what)
+        lines.append(line)
+        fwd += n
+    launches["phase 14b"] = {"fwd": fwd}
+    print(f"phase 14b turntables: {'; '.join(lines)}", flush=True)
+    del loaded
+
+    # (c) web replies
+    lines, fwd = [], 0
+    for what, sm, _, Rt in scenes:
+        line, n = web_replies_line(sm, Rt.cpu().numpy(), what)
+        lines.append(line)
+        fwd += n
+    launches["phase 14c"] = {"fwd": fwd}
+    print(f"phase 14c web replies: {'; '.join(lines)}", flush=True)
+    del big, scenes
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) the viewer while the system runs: 11b's run with --viewer_mode web
+    port = free_port_pair()
+    argv = disk_ref["argv"] + ["-m", tempfile.mkdtemp(prefix="chip_smoke_web_"),
+                               "--viewer_mode", "web", "--ip", "127.0.0.1", "--port", str(port)]
+    stop, seen, errors = threading.Event(), [], []
+    client = threading.Thread(target=poll_viewer, args=(port, stop, seen, errors), daemon=True)
+    client.start()
+    try:
+        meta, sys_, run_s, launches["phase 14d"] = run_entry(argv)
+    finally:
+        stop.set()
+        client.join(timeout=60)
+    check(not client.is_alive(), "phase 14d: the polling client did not stop")
+    viewer = sys_.viewer
+    line = check_system_launches(sys_, launches["phase 14d"], "phase 14d")
+    n_kf = len(sys_.keyframes)
+    kf = sys_.keyframes.dataset_idx[:n_kf].tolist()
+    est = sys_.frontend.estimated_trajectory()
+    psnr = meta["metrics"].get("PSNR", float("nan"))
+    check(kf == disk_ref["kf"] and sys_.frontend.lost_number == disk_ref["lost"],
+          f"phase 14d: keyframes {kf}, lost {sys_.frontend.lost_number} against 11b's "
+          f"{disk_ref['kf']}, {disk_ref['lost']}")
+    check(est.shape == disk_ref["est"].shape and np.array_equal(est, disk_ref["est"]),
+          "phase 14d: poses differ from 11b's")
+    check(psnr == disk_ref["psnr"], f"phase 14d: test PSNR {psnr!r} != 11b's {disk_ref['psnr']!r}")
+    check(viewer.failures == 0, f"phase 14d: {viewer.failures} failed replies")
+    check(len(seen) >= run_s / 2, f"phase 14d: {len(seen)} replies in {run_s:.1f} s")
+    check({size for _, size in seen} == {(WEB_RES[0] // 2, WEB_RES[1] // 2)},
+          f"phase 14d: reply sizes {({size for _, size in seen})}")
+    reply_ms = statistics.median([1e3 * t for t, _ in seen])
+    print(f"phase 14d viewer during run_system.main {' '.join(argv[:-8])} --viewer_mode web: "
+          f"keyframes {kf}, lost {sys_.frontend.lost_number}, every pose and the test PSNR "
+          f"{psnr!r} dB bitwise 11b's; {line}; {len(seen)} replies in {run_s:.1f} s "
+          f"({len(seen) / run_s:.2f}/s), reply {reply_ms:.2f} ms (median), failures "
+          f"{viewer.failures}; {frame_ms_line(sys_, DISK_ENTRY_FRAMES, run_s)} against 11b's "
+          f"{disk_ref['ms']:.2f} ms, {disk_ref['fps']:.2f} FPS; client errors after the "
+          f"server stopped {len(errors)}", flush=True)
+    del sys_, viewer
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 14 took {time.time() - t_phase:.1f} s", flush=True)
+    return launches
+
+
 def main() -> int:
     sys.path.insert(0, ROOT)
     try:
@@ -2521,7 +2913,7 @@ def main() -> int:
     print(f"phase 10 system: {model_summary}", flush=True)
 
     # -- 11. streams from disk ------------------------------------------------------
-    disk_launches = disk_stream_phase(dev, tcfg, sys_ref)
+    disk_launches, disk_ref = disk_stream_phase(dev, tcfg, sys_ref)
 
     # -- 12. the side models and the keypoint-SfM bootstrap ---------------------------
     k3f, k3f_launches = side_models_phase(dev, tcfg, tds)
@@ -2529,18 +2921,24 @@ def main() -> int:
     # -- 13. the multi-device path ---------------------------------------------------
     mesh_launches = mesh_phase(dev, tcfg, sys_ref)
 
+    # -- 14. the viewers ----------------------------------------------------------------
+    view_launches = viewers_phase(dev, sys_ref, disk_ref)
+
     # each path's own counts: the mapper stream (3), tracking (7), the oracle
     # system (8), the model-driven system (10), the streams from disk (11),
-    # the System with the mesh (13d)
+    # the System with the mesh (13d), the viewers (14a-c) and the System
+    # with the web viewer (14d)
     by_phase = {"fwd": {"phase 3": launches["fwd"], "phase 8": sys_launches["fwd"],
                         "phase 10": model_launches["fwd"]},
                 "bwd": {"phase 3": launches["bwd"], "phase 8": sys_launches["bwd"],
                         "phase 10": model_launches["bwd"]},
                 "k3": {"phase 7": k3_launches, "phase 8": sys_launches["k3"],
                        "phase 10": model_launches["k3"]}}
-    for part, counts in (*disk_launches.items(), ("phase 13d", mesh_launches)):
+    for part, counts in (*disk_launches.items(), ("phase 13d", mesh_launches),
+                         *view_launches.items()):
         for k in ("fwd", "bwd", "k3"):
-            by_phase[k][part] = counts[k]
+            if k in counts:
+                by_phase[k][part] = counts[k]
     src = "artdeco_tpu_torch/csrc/composite.cu"
     print(json.dumps({"kernels": [
         {"name": "composite_fwd", "route": "cuda", "source": src,

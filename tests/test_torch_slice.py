@@ -135,7 +135,14 @@ PORT_MODULES = (   # the mapper, tracking, the backend, the models, the data pat
     "poses.triangulator", "models.xfeat", "models.depth_anything", "mapper.mono_depth",
     # the multi-device path
     "parallel", "parallel.mesh", "parallel.splats", "parallel.dp",
+    # the viewers and the run-inspection scripts
+    "runtime.gaussianviewer", "runtime.webviewer", "runtime.websocket", "dataio.jpeg",
+    "dataio.video", "scripts", "scripts.visualize_gs", "scripts.visualize_pointmap",
+    "scripts.traj", "scripts.tum_pose_to_ply", "scripts.compare_pose",
+    "scripts.scannetpp_check", "scripts.test_sim3",
 )
+# what the port's machines lack: the port and chip_smoke.py import none of it
+FORBIDDEN = ("jax", "jaxlib", "flax", "artdeco_tpu", "cv2", "PIL", "websockets", "imageio")
 
 
 def test_port_imports_no_jax():
@@ -153,7 +160,7 @@ def test_port_imports_no_jax():
         f"missing = [m for m in {PORT_MODULES!r} if 'artdeco_tpu_torch.' + m not in sys.modules]\n"
         "assert not missing, missing\n"
         "bad = sorted(k for k in sys.modules\n"
-        "             if k.split('.')[0] in ('jax', 'jaxlib', 'flax', 'artdeco_tpu', 'cv2', 'PIL'))\n"
+        f"             if k.split('.')[0] in {FORBIDDEN!r})\n"
         "assert not bad, bad\n"
         "print('ok', len([k for k in sys.modules if k.startswith('artdeco_tpu_torch')]))\n"
     )
@@ -163,3 +170,30 @@ def test_port_imports_no_jax():
     assert res.returncode == 0, res.stderr
     assert res.stdout.startswith("ok"), res.stdout
     assert int(res.stdout.split()[1]) >= 78
+
+
+def test_port_sources_import_nothing_forbidden():
+    """No ``import`` or ``from`` of JAX, the JAX package, OpenCV, PIL,
+    ``websockets`` or ``imageio`` anywhere in the port's sources or in
+    chip_smoke.py, function-local imports included: importing a module
+    (``test_port_imports_no_jax``) does not run a function body."""
+    import ast
+    import glob
+
+    paths = sorted(glob.glob(os.path.join(REPO, "artdeco_tpu_torch", "**", "*.py"),
+                             recursive=True)) + [os.path.join(REPO, "chip_smoke.py")]
+    assert len(paths) > 90
+    bad = []
+    for path in paths:
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""] if node.level == 0 else []
+            else:
+                continue
+            bad += [f"{os.path.relpath(path, REPO)}:{node.lineno} {name}" for name in names
+                    if name.split(".")[0] in FORBIDDEN]
+    assert not bad, bad
