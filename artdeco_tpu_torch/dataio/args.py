@@ -3,8 +3,10 @@
 The flags and their defaults are the JAX package's, so a command line
 means the same to both entry points (``tests/test_torch_system.py`` holds
 them equal).  The port adds ``--device``: the torch device the system runs
-on (default: the CUDA device).  Flags of parts the port has not ported yet
-are accepted and raise where they would take effect.
+on (default: the CUDA device).  No flag raises: the port runs every part
+a flag selects.  ``--prewarm`` (the JAX package's AOT compiles) is
+accepted and does nothing, and ``--profile_dir`` traces with
+``torch.profiler``.
 """
 
 from __future__ import annotations

@@ -4,8 +4,9 @@ Port of ``artdeco_tpu/dataio/camera.py`` in numpy, without OpenCV: what
 the JAX package asks of ``cv2`` is computed here as OpenCV 5.0 computes it.
 
 * intrinsics: ``cv2.getOptimalNewCameraMatrix(K, dist, (W, H), alpha=0,
-  centerPrincipalPoint=True)`` (``optimal_new_camera_matrix``), or the raw
-  K under ``optimize_focal``;
+  centerPrincipalPoint=True)`` (``optimal_new_camera_matrix``, which also
+  gives alpha 1 for ``scripts/rectify_tum.py``), or the raw K under
+  ``optimize_focal``;
 * undistortion: ``cv2.initUndistortRectifyMap(..., CV_32FC1)`` maps
   (``undistort_maps``) and a bilinear ``cv2.remap`` with a zero border
   (``resample.remap_bilinear``); skipped when every distortion term is 0;
@@ -69,24 +70,35 @@ def undistort_points(uv: np.ndarray, K: np.ndarray, dist, P: np.ndarray,
     return out
 
 
-def optimal_new_camera_matrix(K: np.ndarray, dist, width: int, height: int) -> np.ndarray:
-    """``cv2.getOptimalNewCameraMatrix(K, dist, (w, h), alpha=0, (w, h),
+def optimal_new_camera_matrix(K: np.ndarray, dist, width: int, height: int,
+                              alpha: float = 0.0) -> np.ndarray:
+    """``cv2.getOptimalNewCameraMatrix(K, dist, (w, h), alpha, (w, h),
     centerPrincipalPoint=True)``: the principal point moves to the image's
-    pixel centre and the focal scales so that only valid pixels remain.
-    The inner rectangle comes from undistorting a 9x9 grid of points over
-    the image, as OpenCV does."""
+    pixel centre and the focal scales by OpenCV's blend ``s0 * (1 - alpha)
+    + s1 * alpha`` of two scales, both from undistorting a 9x9 grid of
+    points over the image, as OpenCV does: ``s0`` (alpha 0) keeps only
+    valid pixels (the inner rectangle, the largest of four ratios), ``s1``
+    (alpha 1) keeps every source pixel (the outer rectangle, the
+    smallest)."""
     K = np.asarray(K, np.float64)
     n = 9
     gx, gy = np.meshgrid(np.arange(n, dtype=np.float64) * (width - 1) / (n - 1),
                          np.arange(n, dtype=np.float64) * (height - 1) / (n - 1))
     pts = undistort_points(np.stack([gx.ravel(), gy.ravel()], -1), K, dist, K).reshape(n, n, 2)
-    ix0, ix1 = max(-_FLT_MAX, pts[:, 0, 0].max()), min(_FLT_MAX, pts[:, n - 1, 0].min())
-    iy0, iy1 = max(-_FLT_MAX, pts[0, :, 1].max()), min(_FLT_MAX, pts[n - 1, :, 1].min())
-    iw, ih = ix1 - ix0, iy1 - iy0
     cx0, cy0 = K[0, 2], K[1, 2]
     cx, cy = (width - 1) * 0.5, (height - 1) * 0.5
-    s = max(max(max(cx / (cx0 - ix0), cy / (cy0 - iy0)), cx / (ix0 + iw - cx0)),
-            cy / (iy0 + ih - cy0))
+
+    def scale(x0, y0, w, h, pick):
+        return pick(pick(pick(cx / (cx0 - x0), cy / (cy0 - y0)), cx / (x0 + w - cx0)),
+                    cy / (y0 + h - cy0))
+
+    ix0, ix1 = max(-_FLT_MAX, pts[:, 0, 0].max()), min(_FLT_MAX, pts[:, n - 1, 0].min())
+    iy0, iy1 = max(-_FLT_MAX, pts[0, :, 1].max()), min(_FLT_MAX, pts[n - 1, :, 1].min())
+    s = scale(ix0, iy0, ix1 - ix0, iy1 - iy0, max)
+    if alpha != 0:
+        ox0, ox1 = min(_FLT_MAX, pts[..., 0].min()), max(-_FLT_MAX, pts[..., 0].max())
+        oy0, oy1 = min(_FLT_MAX, pts[..., 1].min()), max(-_FLT_MAX, pts[..., 1].max())
+        s = s * (1 - alpha) + scale(ox0, oy0, ox1 - ox0, oy1 - oy0, min) * alpha
     M = K.copy()
     M[0, 0] *= s
     M[1, 1] *= s

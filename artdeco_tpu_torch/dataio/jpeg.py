@@ -324,19 +324,29 @@ def encode_jpeg(rgb: np.ndarray) -> bytes:
     return b"".join(out)
 
 
-def jpeg_size(data: bytes) -> tuple:
-    """(width, height) from a JPEG's SOF0 marker; raises if there is none
-    before the scan."""
+# start-of-frame markers: baseline, extended, progressive and lossless, with
+# Huffman or arithmetic coding (0xC4, 0xC8 and 0xCC are other segments)
+SOF_MARKERS = frozenset(range(0xC0, 0xD0)) - {0xC4, 0xC8, 0xCC}
+
+
+def jpeg_size(data: bytes, markers=frozenset({0xC0})) -> tuple:
+    """(width, height) from a JPEG's start-of-frame marker; raises if there
+    is none of ``markers`` before the scan.  By default only SOF0, the
+    baseline frame ``encode_jpeg`` writes, so a progressive or extended JPEG
+    raises; pass ``SOF_MARKERS`` to read any frame's size."""
     if data[:2] != b"\xff\xd8":
         raise ValueError("not a JPEG (no SOI)")
     pos = 2
     while pos + 4 <= len(data) and data[pos] == 0xFF:
         marker = data[pos + 1]
         length = struct.unpack(">H", data[pos + 2:pos + 4])[0]
-        if marker == 0xC0:
+        if marker in markers:
+            if pos + 9 > len(data):
+                raise ValueError("JPEG: start-of-frame segment cut short")
             h, w = struct.unpack(">HH", data[pos + 5:pos + 9])
             return w, h
         if marker == 0xDA:
             break
         pos += 2 + length
-    raise ValueError("no baseline SOF0 marker before the scan")
+    raise ValueError("no start-of-frame marker of "
+                     f"{sorted(hex(m) for m in markers)} before the scan")

@@ -317,10 +317,18 @@ def read_colmap_model(model_dir: str):
     return cameras, images
 
 
-def write_png(path: str, rgb: np.ndarray):
-    """(H, W, 3) uint8 as an 8-bit RGB PNG."""
-    h, w, _ = rgb.shape
-    raw = b"".join(b"\x00" + rgb[y].tobytes() for y in range(h))
+_PNG_COLOR_TYPE = {1: 0, 3: 2, 4: 6}     # channels -> grey, RGB, RGBA
+
+
+def write_png(path: str, img: np.ndarray):
+    """(H, W) grey, (H, W, 3) RGB or (H, W, 4) RGBA uint8 as an 8-bit PNG
+    (colour type 0, 2 or 6)."""
+    img = np.ascontiguousarray(img)
+    channels = 1 if img.ndim == 2 else img.shape[2]
+    if img.dtype != np.uint8 or img.ndim not in (2, 3) or channels not in _PNG_COLOR_TYPE:
+        raise ValueError(f"write_png takes (H, W[, 1|3|4]) uint8, not {img.dtype} {img.shape}")
+    h, w = img.shape[:2]
+    raw = b"".join(b"\x00" + img[y].tobytes() for y in range(h))
 
     def chunk(tag, data):
         return (struct.pack(">I", len(data)) + tag + data
@@ -328,7 +336,8 @@ def write_png(path: str, rgb: np.ndarray):
 
     with open(path, "wb") as f:
         f.write(b"\x89PNG\r\n\x1a\n")
-        f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)))
+        f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, _PNG_COLOR_TYPE[channels],
+                                          0, 0, 0)))
         f.write(chunk(b"IDAT", zlib.compress(raw, 6)))
         f.write(chunk(b"IEND", b""))
 

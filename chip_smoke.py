@@ -13,7 +13,9 @@ the model-driven ``System`` (full-width MASt3R and Pi3) through
 TUM sequence) through the entry point, the multi-device path (the
 data-parallel mapper, row-strip renders, the edge-sharded GN), and the
 viewers (saved scenes loaded back, turntables, the web viewer alone and
-beside a running ``System``).
+beside a running ``System``), and the tools (``artdeco_tpu_torch/scripts/``:
+rectification, downsampling, image summaries, videos, the evaluation
+matrix and the rigid-transform A/B scripts).
 
 1. device: a CUDA device is required; prints ``nvidia-smi``'s name and
    power limit; builds the CUDA kernels from ``artdeco_tpu_torch/csrc``
@@ -175,6 +177,31 @@ beside a running ``System``).
    renders + the viewer's renders, K2 and K3 as in 11b, at least one
    reply per 2 s, no failed reply; ms per frame and FPS beside 11b's.
 
+15. the tools, as users run them (``artdeco_tpu_torch/scripts/``; the card's
+   machine has no OpenCV): (a) a 40-frame 640x480 TUM sequence seen through
+   fr1_desk's lens (each clean frame sampled at the undistorted position of
+   every pixel) rectified by ``rectify_tum``: the rectified frames against
+   the clean ones inside the mask (max and mean levels, gated at bounds
+   from a CPU run of this phase), the mask's zero count equal to the CPU
+   run's, ``calib.yaml``'s focal; host ms of one frame's rectification and
+   of ``to_slam`` / ``to_map`` with the distortion calibration (the data
+   path's undistortion); (b) ``downsampleImage`` at factors 2 and 1.5 on
+   641x481 PNGs (sizes; factor 2 is the 2x2 block average),
+   ``img_summary``'s CSV, ``img2vid``'s MP4 read back; (c)
+   ``train_eval_all --datasets tum`` over three 16-frame 640x480 TUM scenes
+   with ``--extra "--oracle --calib ... --seq_length 16"``, each run a
+   subprocess of ``python -m artdeco_tpu_torch.run_system`` on the card:
+   exit 0, ``run_metadata.json``, 0 lost, ATE < 0.03 m; the first scene's
+   command again in this process through ``run_entry``: its trajectories,
+   COLMAP poses and Gaussian PLY byte for byte the subprocess's, its
+   K1/K2/K3 launches checked as in phase 8 (the ``phase 15c`` counts); (d)
+   ``run_debug_rigidtransform.sh`` and ``run_debug_norigidtransform.sh`` on
+   a 4-frame 512x384 image folder (no ``--oracle``: random MASt3R weights),
+   ``python`` on ``PATH`` being this interpreter: both exit 0 with their
+   metadata, a second invocation of each skips its scene, and whether the
+   two runs' trajectories and scenes differ.  Any failed subprocess fails
+   the phase.
+
 Prints one line per phase, then a JSON line of the kernels and, last,
 ``{"ok": true, "device": {...}}``.  Any failed check raises: the exit code
 is then not 0 and the last line is not printed.
@@ -231,6 +258,20 @@ VIEW_W, VIEW_H, VIEW_FRAMES = 640, 360, 60   # phase 14b: visualize_gs's default
 WEB_RES = (1920, 1080)       # phase 14c, d: the client's window (rendered at 960x540)
 LOADED_TOL = 1e-5            # phase 14a: a loaded scene's RGB against the live render
 LOADED_CUT_SHARE = 1e-4      # ... but for pixels where a pair crosses the 1/255 alpha cut
+# phase 15 runs five entry-point subprocesses, each about 14 s on the card
+# before its first frame: its depths were cut (at 80, 40 and 40 frames it
+# took 214.4 s on an H100 80GB HBM3 at 700 W) to keep the phase within 120 s
+TOOLS_W, TOOLS_H, TOOLS_FRAMES = 640, 480, 40   # phase 15a: TUM's size, fr1_desk's lens
+DOWN_FRAMES = 8              # phase 15b: 641x481 PNGs for downsampleImage and img2vid
+MATRIX_W, MATRIX_H, MATRIX_FRAMES = 640, 480, 16   # phase 15c: three TUM scenes
+AB_W, AB_H, AB_FRAMES = 512, 384, 4                # phase 15d: one image-folder scene
+SUBPROCESS_ARGS = ()         # flags added to phase 15's entry-point subprocesses (none on
+                             # the card; a CPU rehearsal passes --device cpu)
+# phase 15a's gates, set from a CPU run of this phase (the same numpy code
+# on the same seeded frames): the rectified frames against the clean ones
+# inside the mask (double bilinear resampling of 7-11 px sinusoids), and
+# the mask's zero count
+RECT_MAX_LEVELS, RECT_MEAN_LEVELS, RECT_MASK_ZEROS = 40, 0.15, 35019   # CPU: 36, 0.1437, 35019
 # The H100 machine this script targets has no libjpeg: g++ there reads
 # "fatal error: jpeglib.h: No such file or directory", so the native
 # loader cannot be built on it.  By this fixed decision phase 11 runs the
@@ -2657,6 +2698,403 @@ def viewers_phase(dev, ref, disk_ref) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the tools
+# ---------------------------------------------------------------------------
+
+class StreamView:
+    """Frames ``idx`` of ``ds``, each passed through ``warp`` when one is
+    given: what ``write_stream`` reads of a dataset."""
+
+    def __init__(self, ds, idx, warp=None):
+        self.ds, self.idx, self.warp = ds, list(idx), warp
+        self.W, self.H = ds.W, ds.H
+        self.timestamp = [ds.timestamp[i] for i in self.idx]
+        self.Twc_gt = np.asarray(ds.Twc_gt)[self.idx]
+        self.image_name_list = [ds.image_name_list[i] for i in self.idx]
+
+    def __len__(self):
+        return len(self.idx)
+
+    def __getitem__(self, i):
+        img, info = self.ds[self.idx[i]]
+        return (img if self.warp is None else self.warp(img)), info
+
+
+def distortion_maps(params, w: int, h: int) -> tuple:
+    """Where each pixel of a camera with ``params``'s lens (K_in and its
+    distortion) samples the ideal camera that ``rectify_tum`` rectifies to
+    (K_out, alpha 1): its undistorted position, by OpenCV's fixed-point
+    iteration run to convergence over the whole grid at once."""
+    from artdeco_tpu_torch.scripts.rectify_tum import rectified_K
+
+    K_in, dist, K_out = rectified_K(params, h, w)
+    k = np.zeros(5)
+    k[:len(dist)] = dist                     # k1 k2 p1 p2 k3
+    v, u = np.mgrid[0:h, 0:w].astype(np.float64)
+    x0 = x = (u - K_in[0, 2]) / K_in[0, 0]
+    y0 = y = (v - K_in[1, 2]) / K_in[1, 1]
+    for _ in range(40):
+        r2 = x * x + y * y
+        icdist = 1.0 / (1 + ((k[4] * r2 + k[1]) * r2 + k[0]) * r2)
+        dx = 2 * k[2] * x * y + k[3] * (r2 + 2 * x * x)
+        dy = k[2] * (r2 + 2 * y * y) + 2 * k[3] * x * y
+        x, y = (x0 - dx) * icdist, (y0 - dy) * icdist
+    return ((K_out[0, 0] * x + K_out[0, 2]).astype(np.float32),
+            (K_out[1, 1] * y + K_out[1, 2]).astype(np.float32))
+
+
+def bilinear_warp(mapx: np.ndarray, mapy: np.ndarray):
+    """A function that samples an (H, W, 3) uint8 image at the maps'
+    positions, bilinearly, 0 outside: taps and float32 weights computed
+    once, four gathers a frame."""
+    h, w = mapx.shape
+    x0, y0 = np.floor(mapx), np.floor(mapy)
+    ax, ay = (mapx - x0).astype(np.float32), (mapy - y0).astype(np.float32)
+    taps = []
+    for dy, dx, wt in ((0, 0, (1 - ax) * (1 - ay)), (0, 1, ax * (1 - ay)),
+                       (1, 0, (1 - ax) * ay), (1, 1, ax * ay)):
+        yy, xx = y0.astype(np.int64) + dy, x0.astype(np.int64) + dx
+        inside = (yy >= 0) & (yy < h) & (xx >= 0) & (xx < w)
+        taps.append(((np.clip(yy, 0, h - 1) * w + np.clip(xx, 0, w - 1)).ravel(),
+                     np.where(inside, wt, 0).astype(np.float32).ravel()[:, None]))
+
+    def warp(img):
+        flat = img.reshape(-1, img.shape[2]).astype(np.float32)
+        acc = sum(flat[i] * wt for i, wt in taps)
+        return np.clip(np.rint(acc), 0, 255).astype(np.uint8).reshape(img.shape)
+
+    return warp
+
+
+def quiet(fn, *args):
+    """``fn(*args)`` with its stdout kept: (its result, the text)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args)
+    return out, buf.getvalue()
+
+
+def rectify_line(root: str) -> tuple:
+    """15a: a TUM sequence seen through fr1_desk's lens, rectified by
+    ``rectify_tum``; its frames against the clean ones.  Returns (the line,
+    the clean frames' view, the rectified images' folder)."""
+    from artdeco_tpu_torch.dataio.dataset import SyntheticDataset
+    from artdeco_tpu_torch.dataio.image_io import read_png
+    from artdeco_tpu_torch.scripts import rectify_tum
+
+    scene = "TUM/rgbd_dataset_freiburg1_desk"
+    params = rectify_tum.TUM_CALIB[scene]
+    ds = SyntheticDataset(types.SimpleNamespace(test_hold=-1, max_size_slam=TOOLS_W),
+                          n_frames=TOOLS_FRAMES, width=TOOLS_W, height=TOOLS_H)
+    seq = StreamView(ds, range(TOOLS_FRAMES), bilinear_warp(*distortion_maps(
+        params, TOOLS_W, TOOLS_H)))
+    scene_dir = os.path.join(root, scene)
+    t0 = time.time()
+    write_stream(seq, scene_dir, tum=True)
+    write_s = time.time() - t0
+    t0 = time.perf_counter()
+    _, said = quiet(rectify_tum.main, ["--base_dir", root, "--scenes", scene])
+    rect_s = time.perf_counter() - t0
+    check(f"{TOOLS_FRAMES} images rectified (f=500.1)" in said,
+          f"phase 15a: rectify_tum said {said!r}")
+    with open(os.path.join(scene_dir, "calib.yaml")) as f:
+        calib = f.read()
+    check(calib.startswith("fx: 500.087452\nfy: 500.087452\ncx: 319.500000\ncy: 239.500000\n"),
+          f"phase 15a: calib.yaml {calib!r}")
+    names = sorted(os.listdir(os.path.join(scene_dir, "images")))
+    check(len(names) == TOOLS_FRAMES, f"phase 15a: {len(names)} rectified frames")
+    mask = read_png(os.path.join(scene_dir, "masks", names[0]))[..., 0]
+    valid = mask == 255
+    zeros = int(np.sum(mask == 0))
+    check(np.all(valid | (mask == 0)), "phase 15a: the mask holds values other than 0 and 255")
+    err_max, err_sum = 0, 0.0
+    for i, name in enumerate(names):
+        got = read_png(os.path.join(scene_dir, "images", name)).astype(np.int64)
+        check(np.array_equal(read_png(os.path.join(scene_dir, "masks", name))[..., 0], mask),
+              f"phase 15a: frame {i}'s mask differs from frame 0's")
+        check(not got[~valid].any(), f"phase 15a: frame {i} is not black outside the mask")
+        d = np.abs(got - ds[i][0])[valid]
+        err_max, err_sum = max(err_max, int(d.max())), err_sum + float(d.mean())
+    err_mean = err_sum / len(names)
+    check(err_max <= RECT_MAX_LEVELS and err_mean <= RECT_MEAN_LEVELS,
+          f"phase 15a: rectified frames off the clean ones by up to {err_max} levels, "
+          f"{err_mean:.4f} mean (bounds {RECT_MAX_LEVELS}, {RECT_MEAN_LEVELS})")
+    check(zeros == RECT_MASK_ZEROS, f"phase 15a: {zeros} mask zeros, the CPU run's "
+          f"{RECT_MASK_ZEROS}")
+    # one frame's rectification on the host, step by step, and the data
+    # path's undistortion (alpha 0) in to_slam and to_map at this size
+    from artdeco_tpu_torch.dataio.camera import PinholeCamera, undistort_maps
+    from artdeco_tpu_torch.dataio.image_io import load_image
+    from artdeco_tpu_torch.dataio.resample import remap_bilinear
+    from artdeco_tpu_torch.mapper.scene_io import write_png
+
+    src = os.path.join(scene_dir, "rgb", sorted(os.listdir(os.path.join(scene_dir, "rgb")))[0])
+    K_in, dist, K_out = rectify_tum.rectified_K(params, TOOLS_H, TOOLS_W)
+    t = [time.perf_counter()]
+    img = load_image(src)
+    t.append(time.perf_counter())
+    ux, uy = undistort_maps(K_in, dist, K_out, TOOLS_W, TOOLS_H)
+    rect = remap_bilinear(img, ux, uy, border="reflect")
+    t.append(time.perf_counter())
+    tmp = os.path.join(root, "one.png")
+    write_png(tmp, np.concatenate([rect, mask[..., None]], -1))
+    write_png(tmp, mask)
+    t.append(time.perf_counter())
+    cam = PinholeCamera(512, 2, TOOLS_W, TOOLS_H, params)
+    frames = [load_image(os.path.join(scene_dir, "rgb", n)) for n in
+              sorted(os.listdir(os.path.join(scene_dir, "rgb")))[:8]]
+    t1 = time.perf_counter()
+    for fr in frames:
+        cam.to_slam(fr)
+    t2 = time.perf_counter()
+    for fr in frames:
+        cam.to_map(fr)
+    t3 = time.perf_counter()
+    line = (f"{TOOLS_FRAMES} frames {TOOLS_W}x{TOOLS_H} through fr1_desk's lens written in "
+            f"{write_s:.1f} s; rectify_tum {rect_s:.2f} s ({1e3 * rect_s / TOOLS_FRAMES:.2f} "
+            f"host ms a frame, its thread pool), calib.yaml f 500.087452; rectified against the "
+            f"clean frames inside the mask: max {err_max} levels, mean {err_mean:.4f} (bounds "
+            f"{RECT_MAX_LEVELS}, {RECT_MEAN_LEVELS}); mask zeros {zeros} (CPU run "
+            f"{RECT_MASK_ZEROS}); one frame on the host: decode {1e3 * (t[1] - t[0]):.2f} ms, "
+            f"maps + reflected remap {1e3 * (t[2] - t[1]):.2f} ms, RGBA and mask PNGs "
+            f"{1e3 * (t[3] - t[2]):.2f} ms; the data path's undistortion (alpha 0) at "
+            f"{TOOLS_W}x{TOOLS_H}, host ms per frame over 8: to_slam "
+            f"{1e3 * (t2 - t1) / 8:.2f}, to_map {1e3 * (t3 - t2) / 8:.2f}")
+    return line, os.path.join(scene_dir, "images")
+
+
+def small_tools_line(root: str, images: str) -> str:
+    """15b: downsampleImage at factors 2 and 1.5 on 641x481 PNGs, img_summary
+    over the folders, img2vid on the 641x481 frames."""
+    from artdeco_tpu_torch.dataio.image_io import image_size, read_png
+    from artdeco_tpu_torch.dataio.jpeg import jpeg_size
+    from artdeco_tpu_torch.dataio.video import read_mp4_samples
+    from artdeco_tpu_torch.mapper.scene_io import write_png
+    from artdeco_tpu_torch.scripts import downsampleImage, img2vid, img_summary
+
+    odd = os.path.join(root, "odd")
+    os.makedirs(odd)
+    names = sorted(os.listdir(images))[:DOWN_FRAMES]
+    for n in names:
+        write_png(os.path.join(odd, n), np.pad(read_png(os.path.join(images, n)),
+                                               ((0, 1), (0, 1), (0, 0)), mode="edge"))
+    t = [time.perf_counter()]
+    sizes = {}
+    for factor, want in (("2", (320, 240)), ("1.5", (427, 321))):
+        out = os.path.join(root, f"x{factor}")
+        _, said = quiet(downsampleImage.main, [odd, "-o", out, "--factor", factor])
+        t.append(time.perf_counter())
+        got = {image_size(os.path.join(out, n)) for n in names}
+        check(said == "done\n" and got == {want},
+              f"phase 15b: downsampleImage --factor {factor}: sizes {got}, said {said!r}")
+        sizes[factor] = got
+    # factor 2 is OpenCV's 2x2 fast path: (sum + 2) >> 2 of the whole blocks
+    a = read_png(os.path.join(odd, names[0]))[:480, :640].astype(np.int64)
+    block = (a.reshape(240, 2, 320, 2, 3).sum(axis=(1, 3)) + 2) >> 2
+    check(np.array_equal(read_png(os.path.join(root, "x2", names[0])), block),
+          "phase 15b: downsampleImage --factor 2 is not the 2x2 block average")
+    dirs = [images, os.path.dirname(images) + "/masks", odd] + [os.path.join(root, f"x{f}")
+                                                               for f in ("2", "1.5")]
+    _, csv = quiet(img_summary.main, dirs)
+    want = (f"name,count,image_size\nimages,{TOOLS_FRAMES},{TOOLS_W}x{TOOLS_H}\n"
+            f"masks,{TOOLS_FRAMES},{TOOLS_W}x{TOOLS_H}\n"
+            f"odd,{DOWN_FRAMES},{TOOLS_W + 1}x{TOOLS_H + 1}\nx2,{DOWN_FRAMES},320x240\n"
+            f"x1.5,{DOWN_FRAMES},427x321\nmin {DOWN_FRAMES} max {TOOLS_FRAMES}\n")
+    check(csv == want, f"phase 15b: img_summary printed {csv!r}, not {want!r}")
+    t.append(time.perf_counter())
+    mp4 = os.path.join(root, "odd.mp4")
+    _, said = quiet(img2vid.main, [odd, "-o", mp4])
+    t.append(time.perf_counter())
+    back = read_mp4_samples(mp4)
+    check(said == f"wrote {mp4} ({DOWN_FRAMES} frames)\n" and back["fps"] == 30.0
+          and (back["kind"], back["width"], back["height"]) == ("jpeg", TOOLS_W + 1, TOOLS_H + 1)
+          and len(back["samples"]) == DOWN_FRAMES
+          and {jpeg_size(s) for s in back["samples"]} == {(TOOLS_W + 1, TOOLS_H + 1)},
+          f"phase 15b: img2vid's MP4 {dict(back, samples=len(back['samples']))}, said {said!r}")
+    return (f"downsampleImage on {DOWN_FRAMES} PNGs of {TOOLS_W + 1}x{TOOLS_H + 1}: --factor 2 "
+            f"-> 320x240 (the 2x2 block average) in {t[1] - t[0]:.2f} s, --factor 1.5 -> "
+            f"427x321 in {t[2] - t[1]:.2f} s; img_summary over 5 folders, the CSV as "
+            f"expected, {1e3 * (t[3] - t[2]):.1f} ms; img2vid {DOWN_FRAMES} frames "
+            f"{TOOLS_W + 1}x{TOOLS_H + 1} in {t[4] - t[3]:.2f} s, {len(back['samples'])} JPEG "
+            f"samples of {back['width']}x{back['height']} at {back['fps']:.0f} fps read back")
+
+
+def run_tool(cmd, env=None, timeout=600) -> subprocess.CompletedProcess:
+    """A tool as users run it from the repository's root; its output is
+    kept and shown if it fails."""
+    res = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=timeout)
+    check(res.returncode == 0, f"{' '.join(cmd[:4])} exited {res.returncode}:\n"
+          f"{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
+    return res
+
+
+def run_dir_summary(out: str) -> dict:
+    """What a run of the entry point left in ``out``: its metadata, lost
+    share and ATE."""
+    check(os.path.isfile(os.path.join(out, "run_metadata.json")),
+          f"no run_metadata.json in {out}")
+    with open(os.path.join(out, "run_metadata.json")) as f:
+        meta = json.load(f)
+    with open(os.path.join(out, "slam", "lost_percentage.txt")) as f:
+        lost = float(f.read())
+    ate = (meta.get("trajectory") or {}).get("APE", {}).get("rmse", float("nan"))
+    return dict(meta=meta, lost=lost, ate=ate, ms=1e3 * meta["time"] / max(meta["n_frames"], 1))
+
+
+def same_files(a: str, b: str, rels) -> list:
+    """The files of ``rels`` whose bytes differ between runs ``a`` and ``b``
+    (a file one run wrote and the other did not differs; ``frames.txt`` is
+    not written when every frame was lost)."""
+    out = []
+    for rel in rels:
+        fa, fb = os.path.join(a, rel), os.path.join(b, rel)
+        if not (os.path.isfile(fa) or os.path.isfile(fb)):
+            continue
+        if not (os.path.isfile(fa) and os.path.isfile(fb)):
+            out.append(rel)
+            continue
+        with open(fa, "rb") as f, open(fb, "rb") as g:
+            if f.read() != g.read():
+                out.append(rel)
+    return out
+
+
+def matrix_phase(root: str) -> tuple:
+    """15c: ``train_eval_all --datasets tum`` over three TUM scenes (three
+    consecutive windows of one synthetic stream), each run a subprocess
+    of the entry point; the first scene's command again in this process.
+    Returns (the line, that run's launches)."""
+    import torch
+    from artdeco_tpu_torch.dataio.dataset import SyntheticDataset
+    from artdeco_tpu_torch.scripts.train_eval_all import MATRIX
+
+    scenes = MATRIX["tum"]["scenes"]
+    ds = SyntheticDataset(types.SimpleNamespace(test_hold=-1, max_size_slam=MATRIX_W),
+                          n_frames=3 * MATRIX_FRAMES, width=MATRIX_W, height=MATRIX_H)
+    data_root, save_root = os.path.join(root, "data"), os.path.join(root, "results")
+    t0 = time.time()
+    for k, scene in enumerate(scenes):
+        calib = write_stream(StreamView(ds, range(k * MATRIX_FRAMES, (k + 1) * MATRIX_FRAMES)),
+                             os.path.join(data_root, "tum", scene), tum=True)
+    write_s = time.time() - t0
+    extra = " ".join(["--oracle", "--calib", calib, "--seq_length", str(MATRIX_FRAMES),
+                      *SUBPROCESS_ARGS])
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    res = run_tool([sys.executable, "-m", "artdeco_tpu_torch.scripts.train_eval_all",
+                    "--data_root", data_root, "--datasets", "tum", "--save_root", save_root,
+                    "--extra", extra])
+    matrix_s = time.time() - t0
+    cmds = [ln[2:].split() for ln in res.stdout.splitlines() if ln.startswith("+ ")]
+    check(len(cmds) == 3 and all(c[1:3] == ["-m", "artdeco_tpu_torch.run_system"]
+                                 for c in cmds), f"phase 15c: commands {cmds}")
+    runs = []
+    for scene in scenes:
+        r = run_dir_summary(os.path.join(save_root, "tum", scene))
+        check(r["lost"] == 0, f"phase 15c {scene}: lost share {r['lost']}")
+        check(r["ate"] < 0.03, f"phase 15c {scene}: ATE RMSE {r['ate']} m")
+        check(r["meta"]["n_frames"] == MATRIX_FRAMES,
+              f"phase 15c {scene}: {r['meta']['n_frames']} frames")
+        runs.append(r)
+    # the first command again, in this process, into its own folder
+    argv = cmds[0][3:]
+    out_sub = argv[argv.index("-m") + 1]
+    out_in = os.path.join(root, "inprocess")
+    argv[argv.index("-m") + 1] = out_in
+    meta, sys_, run_s, launches = run_entry(argv)
+    line = check_system_launches(sys_, launches, "phase 15c")
+    rels = ["slam/frames.txt", "slam/keyframes.txt", "colmap/images.bin", "point_clouds/gs.ply"]
+    diff = same_files(out_sub, out_in, rels)
+    check(not diff, f"phase 15c: the in-process run's {diff} differ from the subprocess's")
+    del sys_
+    gc.collect()
+    torch.cuda.empty_cache()
+    per = "; ".join(f"{s.split('_', 2)[-1]}: keyframes {r['meta']['n_keyframes']}, lost 0, ATE "
+                    f"{r['ate']:.5f} m, {r['ms']:.2f} ms a frame, PSNR "
+                    f"{r['meta']['metrics'].get('PSNR', float('nan')):.2f} dB"
+                    for s, r in zip(scenes, runs))
+    return (f"train_eval_all --datasets tum --extra \"{extra}\" over 3 scenes of "
+            f"{MATRIX_FRAMES} frames {MATRIX_W}x{MATRIX_H} (written in {write_s:.1f} s): 3 "
+            f"subprocesses of python -m artdeco_tpu_torch.run_system, exit 0, in {matrix_s:.1f} s; "
+            f"{per}; {' '.join(cmds[0][3:7])} again in this process: {', '.join(rels)} "
+            f"byte for byte the subprocess's, {run_s:.1f} s; {line}"), launches
+
+
+def ab_phase(root: str) -> str:
+    """15d: the rigid-transform A/B scripts on one image-folder scene, then
+    both again: each must skip its finished scene."""
+    from artdeco_tpu_torch.dataio.dataset import SyntheticDataset
+
+    base, results = os.path.join(root, "base"), os.path.join(root, "ab_results")
+    ds = SyntheticDataset(types.SimpleNamespace(test_hold=-1, max_size_slam=AB_W),
+                          n_frames=AB_FRAMES, width=AB_W, height=AB_H)
+    write_stream(ds, os.path.join(base, "scene"))
+    # the scripts call `python`: this interpreter, through a shim that
+    # counts its calls
+    bindir, log = os.path.join(root, "bin"), os.path.join(root, "python_calls.txt")
+    os.makedirs(bindir)
+    with open(os.path.join(bindir, "python"), "w") as f:
+        f.write(f"#!/bin/bash\necho \"$*\" >> {log}\nexec {sys.executable} \"$@\" "
+                + " ".join(SUBPROCESS_ARGS) + "\n")
+    os.chmod(os.path.join(bindir, "python"), 0o755)
+    env = dict(os.environ, PATH=f"{bindir}:{os.environ['PATH']}", BASE_DIR=base,
+               RESULT_DIR=results)
+    got, secs = {}, {}
+    for kind in ("rigid", "norigid"):
+        script = os.path.join(ROOT, "artdeco_tpu_torch", "scripts", f"run_debug_{kind}transform.sh")
+        t0 = time.time()
+        run_tool([script], env=env)
+        secs[kind] = time.time() - t0
+        got[kind] = run_dir_summary(os.path.join(results, "scene",
+                                                 f"artdeco-tpu-torch-{kind}transform"))
+    with open(log) as f:
+        calls = f.read().splitlines()
+    check(len(calls) == 2 and "--rigid_transform_gaussians" in calls[0]
+          and "--no_rigid_transform_gaussians" in calls[1], f"phase 15d: python ran {calls}")
+    for kind in ("rigid", "norigid"):
+        script = os.path.join(ROOT, "artdeco_tpu_torch", "scripts", f"run_debug_{kind}transform.sh")
+        res = run_tool([script], env=env)
+        check(f"artdeco-tpu-torch-{kind}transform contains results" in res.stdout,
+              f"phase 15d: the second {kind} run said {res.stdout!r}")
+    with open(log) as f:
+        check(len(f.read().splitlines()) == 2, "phase 15d: a second run started the entry point")
+    a, b = (os.path.join(results, "scene", f"artdeco-tpu-torch-{k}transform")
+            for k in ("rigid", "norigid"))
+    differ = same_files(a, b, ["slam/frames.txt", "slam/keyframes.txt", "point_clouds/gs.ply"])
+    n_kf = got["rigid"]["meta"]["n_keyframes"]
+    return (f"run_debug_rigidtransform.sh and run_debug_norigidtransform.sh on one image folder "
+            f"of {AB_FRAMES} frames {AB_W}x{AB_H} (no --oracle, no checkpoint: random "
+            f"weights), exit 0 and metadata in {secs['rigid']:.1f} / {secs['norigid']:.1f} s, "
+            f"{got['rigid']['ms']:.2f} / {got['norigid']['ms']:.2f} ms a frame, keyframes "
+            f"{n_kf} / {got['norigid']['meta']['n_keyframes']}, lost share "
+            f"{got['rigid']['lost']:.3f} / {got['norigid']['lost']:.3f}; trajectories and "
+            + (f"scenes differ ({', '.join(differ)})" if differ else
+               "scenes equal byte for byte: no loop-closure transform changed the scene")
+            + "; a second invocation of each skipped its scene without starting python")
+
+
+def tools_phase() -> int:
+    """Phase 15: the tools (see the module docstring).  Returns the launches
+    of 15c's in-process run."""
+    import tempfile
+
+    t_phase = time.time()
+    root = tempfile.mkdtemp(prefix="chip_smoke_tools_")
+    line, images = rectify_line(root)
+    print(f"phase 15a rectification: {line}", flush=True)
+    print(f"phase 15b small tools: {small_tools_line(root, images)}", flush=True)
+    line, launches = matrix_phase(root)
+    print(f"phase 15c evaluation matrix: {line}", flush=True)
+    print(f"phase 15d A/B scripts: {ab_phase(root)}", flush=True)
+    print(f"phase 15 took {time.time() - t_phase:.1f} s", flush=True)
+    return launches
+
+
 def main() -> int:
     sys.path.insert(0, ROOT)
     try:
@@ -2924,10 +3362,16 @@ def main() -> int:
     # -- 14. the viewers ----------------------------------------------------------------
     view_launches = viewers_phase(dev, sys_ref, disk_ref)
 
+    # -- 15. the tools ---------------------------------------------------------------------
+    tools_launches = tools_phase()
+    for name in ("fwd", "bwd", "k3"):
+        check(tools_launches[name] > 0, f"phase 15c's run launched no {name}")
+
     # each path's own counts: the mapper stream (3), tracking (7), the oracle
     # system (8), the model-driven system (10), the streams from disk (11),
-    # the System with the mesh (13d), the viewers (14a-c) and the System
-    # with the web viewer (14d)
+    # the System with the mesh (13d), the viewers (14a-c), the System
+    # with the web viewer (14d) and the evaluation matrix's run in this
+    # process (15c)
     by_phase = {"fwd": {"phase 3": launches["fwd"], "phase 8": sys_launches["fwd"],
                         "phase 10": model_launches["fwd"]},
                 "bwd": {"phase 3": launches["bwd"], "phase 8": sys_launches["bwd"],
@@ -2935,7 +3379,7 @@ def main() -> int:
                 "k3": {"phase 7": k3_launches, "phase 8": sys_launches["k3"],
                        "phase 10": model_launches["k3"]}}
     for part, counts in (*disk_launches.items(), ("phase 13d", mesh_launches),
-                         *view_launches.items()):
+                         *view_launches.items(), ("phase 15c", tools_launches)):
         for k in ("fwd", "bwd", "k3"):
             if k in counts:
                 by_phase[k][part] = counts[k]
