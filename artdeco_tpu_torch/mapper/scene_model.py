@@ -779,6 +779,18 @@ class SceneModel:
         self.n_train_steps += 1
         return metrics
 
+    def optimization_step(self, is_important: bool = True,
+                          finetuning: bool = False) -> Optional[dict]:
+        """One training iteration on a keyframe drawn as the JAX package's
+        ``optimization_step`` draws it (the last keyframe with probability
+        ``use_last_frame_proba``, else ``get_training_id``), on a random
+        background; returns its metrics, or None on an empty scene.  N
+        calls consume the RandomState as ``optimization_loop(N)`` does."""
+        if not self._has_gaussians or not self.keyframes:
+            return None
+        (kid,), (bg,) = self._presample_iters(1, finetuning=finetuning)
+        return self.train_step(kid, bg, is_important)
+
     def optimization_loop(self, n_iters: int, is_important: bool = True,
                           finetuning: bool = False) -> Optional[dict]:
         """A burst of ``n_iters`` iterations; returns the last metrics."""

@@ -89,7 +89,8 @@ class OracleRunner:
             self._by_id[key] = (weakref.ref(img, forget), fid)
 
     def _fid(self, img) -> int:
-        hit = self._by_id.get(id(img))
+        with self._lock:
+            hit = self._by_id.get(id(img))
         if hit is not None and hit[0]() is img:
             return hit[1]
         if isinstance(img, torch.Tensor) and img.device.type != "cpu":

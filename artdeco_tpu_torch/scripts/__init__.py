@@ -18,6 +18,14 @@ Data preparation:
     python -m artdeco_tpu_torch.scripts.img_summary DIR [DIR ...]
     python -m artdeco_tpu_torch.scripts.img2vid IMAGES_DIR [-o out.mp4 --fps 30]
 
+Measurement, on the card (``python -m artdeco_tpu_torch.bench`` is the
+benchmark):
+
+    python -m artdeco_tpu_torch.scripts.profile_stages
+    python -m artdeco_tpu_torch.scripts.profile_render [--sizes 65536 262144]
+    python -m artdeco_tpu_torch.scripts.profile_refine
+    python -m artdeco_tpu_torch.scripts.probe_transfers
+
 Evaluation scripts on ``python -m artdeco_tpu_torch.run_system`` (from the
 repository's root):
 

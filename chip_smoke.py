@@ -13,9 +13,10 @@ the model-driven ``System`` (full-width MASt3R and Pi3) through
 TUM sequence) through the entry point, the multi-device path (the
 data-parallel mapper, row-strip renders, the edge-sharded GN), and the
 viewers (saved scenes loaded back, turntables, the web viewer alone and
-beside a running ``System``), and the tools (``artdeco_tpu_torch/scripts/``:
+beside a running ``System``), the tools (``artdeco_tpu_torch/scripts/``:
 rectification, downsampling, image summaries, videos, the evaluation
-matrix and the rigid-transform A/B scripts).
+matrix and the rigid-transform A/B scripts), and the measurement tools (the
+benchmark ``python -m artdeco_tpu_torch.bench`` and the four profilers).
 
 1. device: a CUDA device is required; prints ``nvidia-smi``'s name and
    power limit; builds the CUDA kernels from ``artdeco_tpu_torch/csrc``
@@ -63,10 +64,10 @@ matrix and the rigid-transform A/B scripts).
    launches equal to the calls that launch them (K3: tracked matches +
    the backend's symmetric-match rows + its pair matches), ATE RMSE < 0.03
    m, finite test PSNR.  Prints ms per frame and FPS, the stage split,
-   peak memory, then runs the stream again sequentially with
-   device-synchronised backend timers (keyframe poses within 1e-5 of the
-   overlapped run's), the ms per GN solve at its (P, E), and a profile of
-   the frames around the second keyframe with the GN's share.
+   peak memory, then runs the stream's first 76 frames sequentially with
+   device-synchronised backend timers (its keyframes phase 8's), the ms
+   per GN solve at its (P, E), and a profile of the frames around the
+   second keyframe with the GN's share.
 9. the solvers and relocalization on the card: the block-sparse PCG
    against the dense GN on a 264-pose graph at 128x96, 10 iterations
    (poses within 5e-4 in the Sim(3) log, the CPU test's tolerance, and the
@@ -92,12 +93,13 @@ matrix and the rigid-transform A/B scripts).
    model path's cost (lost frames run relocalization with Pi3), not its
    tracking.
 11. streams from disk, as users run the system on their own frames: (a)
-   phase 8's 240 frames written as PNGs with a TUM-format
-   ``groundtruth.txt`` and a calibration YAML, read by
-   ``SelfCapturedDataset`` and run by ``System.run`` through the Python
-   loader (PNG decode, ``to_slam``) with phase 8's arguments: keyframes,
-   lost frames, every pose and the test PSNR must be bitwise phase 8's;
-   (b) the same folder (its first 80 frames) through ``run_system.main``
+   the first 76 frames of phase 8's stream written as PNGs with a
+   TUM-format ``groundtruth.txt`` and a calibration YAML, read by
+   ``SelfCapturedDataset`` and run by ``System.run`` (overlapped) through
+   the Python loader (PNG decode, ``to_slam``) with phase 8's arguments:
+   keyframes, lost frames, every pose and the test PSNR must be bitwise
+   phase 8's sequential run of the same frames from memory;
+   (b) the same folder through ``run_system.main``
    with ``--calib`` and ``--oracle``, the loader the entry point chooses:
    0 lost, phase 8's keyframes, ATE < 0.03 m, ``save``'s files; (c) a TUM
    sequence at 640x480 (``rgb.txt``, ``groundtruth.txt``) through
@@ -143,13 +145,13 @@ matrix and the rigid-transform A/B scripts).
    times each, timed beside a one-slot step, with the replica copy's
    device time; (c) the edge-sharded GN against the unsharded one on the
    JAX package's dry-run problem (64 edges) and on phase 8's factor graph
-   at its final (P, E); (d) ``System.run`` over phase 8's first 80 frames
+   at its final (P, E); (d) ``System.run`` over phase 8's first 72 frames
    with ``System.enable_mesh``: 0 lost, training only through dp steps, K1
    = 4 x (dp steps + sharded renders) + renders, K2 = 4 x dp steps, K3 as
    in phase 8, every GN solve sharded, ATE < 0.03 m; ms per frame, FPS,
    keyframes, ATE, PSNR and Gaussians beside phase 8's.  (e) On a machine
    with 2 or more cards, ``run_system --oracle --n_devices k`` (k = 2 or
-   4 distinct cards) on 80 frames, then (a)-(c) over the k cards on that
+   4 distinct cards) on 72 frames, then (a)-(c) over the k cards on that
    run's scene and graph, and K1 launched from a thread whose current
    device is another card; with one card, one line says that (e) did not
    run.
@@ -202,12 +204,28 @@ matrix and the rigid-transform A/B scripts).
    two runs' trajectories and scenes differ.  Any failed subprocess fails
    the phase.
 
+16. the measurement tools, as users run them: (a) ``python -m
+   artdeco_tpu_torch.bench`` as a subprocess: its last stdout line must be
+   the JSON line with exactly the four keys of the repository's
+   ``bench.py``, its golden check must have passed, its measured bf16
+   ceiling must read under 105 % of the H100's published 989 TFLOP/s, and
+   its pipeline's keyframe pose error must stay under 0.05 with a keyframe
+   after frame 0; prints the line and the numbers of its summary; (b) the
+   pipeline's K1/K2/K3 launches, counted in that process over its stream,
+   against the calls that launch them (phase 8's rule), and ``nvidia-smi``'s
+   SM clock, power draw, power limit and temperature, sampled every 0.5 s,
+   inside its steady window; (c) ``profile_render``, ``profile_refine``,
+   ``probe_transfers`` and ``profile_stages``
+   (``artdeco_tpu_torch/scripts/``) in this process at their JAX sizes,
+   ``profile_stages`` with a quarter of its calls a row, each row printed.
+
 Prints one line per phase, then a JSON line of the kernels and, last,
 ``{"ok": true, "device": {...}}``.  Any failed check raises: the exit code
 is then not 0 and the last line is not printed.
 """
 
 import dataclasses
+import faulthandler
 import gc
 import json
 import os
@@ -241,9 +259,9 @@ MODEL_EDGES = 4              # edges of the timed symmetric match (8 decoded pai
 MODEL_TIMED = 5
 PI3_FRAMES = 24              # the accurate matcher's window (23 candidates and the query)
 SYS10_FRAMES = 16            # depth of the model-driven System run
-DISK_ENTRY_FRAMES = 80       # phase 11b (and 14d): the entry point on the first frames of
-                             # 11a's folder, its keyframes 0 and 70
-TUM_W, TUM_H, TUM_SLAM, TUM_FRAMES, TUM_TEST_HOLD = 640, 480, 512, 80, 30   # phase 11c
+DISK_ENTRY_FRAMES = 76       # phases 8 (sequential), 11a, 11b and 14d: the first frames of
+                             # phase 8's stream, its keyframes 0 and 70 and SYS_PROFILED
+TUM_W, TUM_H, TUM_SLAM, TUM_FRAMES, TUM_TEST_HOLD = 640, 480, 512, 64, 30   # phase 11c
 CALIB_FRAMES = 8             # phase 11d
 XFEAT_TOPK = (4096, 1024)    # phase 12a
 DAV2_ENCODER = "vitl"        # phase 12b: dav2_config("vitl"), the released ViT-L
@@ -252,7 +270,7 @@ SOLVER_POINTS = 1024         # phase 12d
 KNN_POINTS = 100_000         # phase 12e
 F32_TRACK_FRAMES = 24        # phase 12f
 MESH_SLOTS = 4               # phase 13: the virtual mesh, 4 slots on one card
-MESH_FRAMES = 80             # phase 13d: the first 80 frames of phase 8's stream
+MESH_FRAMES = 72             # phase 13d: the first 72 frames of phase 8's stream
 MESH_TIMED = 5
 VIEW_W, VIEW_H, VIEW_FRAMES = 640, 360, 60   # phase 14b: visualize_gs's defaults
 WEB_RES = (1920, 1080)       # phase 14c, d: the client's window (rendered at 960x540)
@@ -267,6 +285,10 @@ MATRIX_W, MATRIX_H, MATRIX_FRAMES = 640, 480, 16   # phase 15c: three TUM scenes
 AB_W, AB_H, AB_FRAMES = 512, 384, 4                # phase 15d: one image-folder scene
 SUBPROCESS_ARGS = ()         # flags added to phase 15's entry-point subprocesses (none on
                              # the card; a CPU rehearsal passes --device cpu)
+BENCH_CMD = (sys.executable, "-m", "artdeco_tpu_torch.bench")   # phase 16a, as users run it
+BENCH_TIMEOUT = 600
+STAGE_REPEATS = 0.25         # phase 16c: a quarter of profile_stages' calls a row (widths kept)
+SMI_QUERY = "--query-gpu=clocks.sm,power.draw,power.limit,temperature.gpu"
 # phase 15a's gates, set from a CPU run of this phase (the same numpy code
 # on the same seeded frames): the rectified frames against the clean ones
 # inside the mask (double bilinear resampling of 7-11 px sinusoids), and
@@ -699,12 +721,19 @@ def system_args(**overrides):
     return args
 
 
-def make_system(dev, ds, cfg, args):
+def make_system(dev, ds, cfg, args, runner=None):
+    """A System on the oracle stream ``ds`` and its registration seconds.
+    ``runner``: an ``OracleRunner`` that already holds ``ds``'s frames
+    (phase 8's, for a run of its stream or a prefix of it, from memory or
+    from disk: the oracle finds a frame by its SLAM image's bytes), reused
+    in place of registering them again (0 s)."""
     from artdeco_tpu_torch.models.oracle import OracleRunner
     from artdeco_tpu_torch.runtime.system import System
 
-    runner = OracleRunner((ds.H_slam, ds.W_slam), ds.K_slam, cfg["matching"], device=dev)
-    reg_s = register_stream(runner, ds)
+    reg_s = 0.0
+    if runner is None:
+        runner = OracleRunner((ds.H_slam, ds.W_slam), ds.K_slam, cfg["matching"], device=dev)
+        reg_s = register_stream(runner, ds)
     return System(args, cfg, ds, runner, device=dev), reg_s
 
 
@@ -760,12 +789,20 @@ def check_system_launches(sys_, launches: dict, what: str) -> str:
             f"matches)")
 
 
+def tracked_poses(frontend) -> list:
+    """(frame id, keyframe index, keyframe-relative pose as numpy) of every
+    tracked frame, in order."""
+    return [(int(fid), int(kf), T_rel.detach().cpu().numpy())
+            for fid, _, kf, T_rel in frontend.frames_info]
+
+
 def full_system_phase(dev, cfg):
-    """Phase 8: the full System, overlapped, then sequentially (see the
-    module docstring).  Returns the kernels' launch counts of the
-    overlapped run and what phase 11a holds its run from disk to: the
-    stream, its keyframes, every frame's pose, the test PSNR, ms per frame
-    and FPS."""
+    """Phase 8: the full System, overlapped, then its first frames
+    sequentially (see the module docstring).  Returns the kernels' launch
+    counts of the overlapped run and what later phases use: the stream, its
+    keyframes, ms per frame and FPS, its scene, graph and oracle, and what
+    phase 11a holds its run from disk to (the sequential run's keyframes,
+    every frame's pose and the test PSNR)."""
     import tempfile
 
     import torch
@@ -827,22 +864,30 @@ def full_system_phase(dev, cfg):
           f"track {rt.get('track', 0):.2f}, backend {rt.get('backend', 0):.2f} (per "
           f"message), map {rt.get('map', 0):.2f} (per work item, worker thread); peak memory "
           f"{peak_mib:.1f} MiB", flush=True)
-    kf_T = sys_.keyframes.T_WC[:n_kf].copy()
     # phase 13 runs the multi-device path on this run's scene and graph,
-    # phase 14 the viewers on its scene and its saved directory
-    ref = dict(ds=ds, out_dir=out_dir, kf_frames=kf_frames, est=fe.estimated_trajectory(),
-               psnr=psnr, lost=fe.lost_number, ms=statistics.median(frame_ms),
-               fps=SYS_FRAMES / run_s,
-               ate=ate, n_gaussians=meta["n_gaussians"], scene_model=sm, factor_graph=fg)
+    # phase 14 the viewers on its scene and its saved directory; the
+    # sequential run, 11a and 13d reuse its oracle (240 frames registered)
+    ref = dict(ds=ds, out_dir=out_dir, kf_frames=kf_frames, ms=statistics.median(frame_ms),
+               fps=SYS_FRAMES / run_s, ate=ate, psnr=psnr, n_gaussians=meta["n_gaussians"],
+               scene_model=sm, factor_graph=fg, runner=fe.runner)
+    # each tracked frame's keyframe-relative pose, fixed when it is tracked
+    # (later GN solves move only the keyframes), and the GN solves' sizes:
+    # the sequential run of the first frames must give them bit for bit
+    rel = tracked_poses(fe)
+    solves = list(fg.solves)
     del sys_, fe, bk, fg, sm
     gc.collect()
     torch.cuda.empty_cache()
 
-    # the same stream sequentially, device-synchronised backend timers, and
-    # a profile of the frames around the second keyframe
-    seq, _ = make_system(dev, ds, cfg, system_args(max_size_slam=SYS_W))
+    # the stream's first DISK_ENTRY_FRAMES frames sequentially, with
+    # device-synchronised backend timers and a profile of the frames around
+    # the second keyframe; phase 11a holds the same frames, read from disk
+    # and run overlapped, to this run bit for bit
+    n_seq = DISK_ENTRY_FRAMES
+    seq_ds = SyntheticDataset(args, n_frames=n_seq, width=SYS_W, height=SYS_H)
+    seq, _ = make_system(dev, seq_ds, cfg, system_args(max_size_slam=SYS_W), ref["runner"])
     seq.backend.sync_timing = True
-    it = _UploadAhead(_Prefetcher(ds), ds.transform, dev, runner=seq.frontend.runner)
+    it = _UploadAhead(_Prefetcher(seq_ds), seq_ds.transform, dev, runner=seq.frontend.runner)
 
     import contextlib
 
@@ -854,16 +899,31 @@ def full_system_phase(dev, cfg):
         it.close()
     torch.cuda.synchronize()
     seq_s = time.time() - t0
+    seq_meta = seq.save(tempfile.mkdtemp(prefix="chip_smoke_seq_"))
     n2 = len(seq.keyframes)
-    check(n2 == n_kf and seq.keyframes.dataset_idx[:n2].tolist() == kf_frames,
-          f"sequential keyframes {seq.keyframes.dataset_idx[:n2].tolist()} != {kf_frames}")
-    pose_diff = float(np.abs(seq.keyframes.T_WC[:n2] - kf_T).max())
-    check(pose_diff <= 1e-5, f"sequential keyframe poses {pose_diff} from the overlapped run's")
+    seq_kf = seq.keyframes.dataset_idx[:n2].tolist()
+    want_kf = [k for k in kf_frames if k < n_seq]
+    check(seq_kf == want_kf, f"sequential keyframes {seq_kf} != phase 8's {want_kf}")
+    seq_rel, want_rel = tracked_poses(seq.frontend), [r for r in rel if r[0] < n_seq]
+    differ = [a[0] for a, b in zip(seq_rel, want_rel)
+              if a[:2] != b[:2] or not np.array_equal(a[2], b[2])]
+    check(len(seq_rel) == len(want_rel) and not differ,
+          f"sequential: {len(seq_rel)} tracked frames against the overlapped run's "
+          f"{len(want_rel)}, keyframe-relative poses differ from frame "
+          f"{differ[0] if differ else None}")
+    seq_solves = list(seq.backend.factor_graph.solves)
+    check(seq_solves == solves[:len(seq_solves)] and len(seq_solves) == len(want_kf) - 1,
+          f"sequential GN solves {seq_solves} against the overlapped run's {solves}")
+    ref["seq"] = dict(kf_frames=seq_kf, est=seq.frontend.estimated_trajectory(),
+                      lost=seq.frontend.lost_number,
+                      psnr=seq_meta["metrics"].get("PSNR", float("nan")))
     gn = seq.backend.factor_graph.timers.get("gn.solve", [0.0, 0])
-    print(f"phase 8 sequential: keyframes {kf_frames}, poses within {pose_diff:.3g} of the "
-          f"overlapped run's; {statistics.median([1e3 * x for x in seq.frame_s]):.2f} ms per "
+    print(f"phase 8 sequential: the first {n_seq} frames, keyframes {seq_kf}, the "
+          f"{len(seq_rel)} tracked frames' keyframe-relative poses bitwise the overlapped "
+          f"run's; "
+          f"{statistics.median([1e3 * x for x in seq.frame_s]):.2f} ms per "
           f"frame (median; mean {statistics.mean([1e3 * x for x in seq.frame_s]):.2f}), "
-          f"{SYS_FRAMES / seq_s:.2f} FPS ({seq_s:.1f} s, its profiled window included); "
+          f"{n_seq / seq_s:.2f} FPS ({seq_s:.1f} s, its profiled window included); "
           f"device-synchronised ms per call: "
           f"{timers_ms(seq.backend.timers, 'bkd.')}; "
           f"{timers_ms(seq.backend.factor_graph.timers, 'fg.')}; "
@@ -1310,19 +1370,21 @@ def disk_stream_phase(dev, cfg, ref) -> tuple:
           f"decision (NATIVE_PHASES)", flush=True)
     launches = {}
 
-    # (a) phase 8's stream from PNG files, the Python loader, bit for bit
+    # (a) the first frames of phase 8's stream from PNG files, the Python
+    # loader, bit for bit phase 8's sequential run of them
     root = tempfile.mkdtemp(prefix="chip_smoke_disk_")
     t0 = time.time()
-    calib = write_stream(ref["ds"], root)
+    calib = write_stream(StreamView(ref["ds"], range(DISK_ENTRY_FRAMES)), root)
     write_s = time.time() - t0
     args = system_args(max_size_slam=SYS_W, dataset_name="selfCaptured", source_path=root,
                        calib=calib)
     ds = SelfCapturedDataset(args)
-    check(len(ds) == SYS_FRAMES and np.array_equal(ds.K_slam, ref["ds"].K_slam)
+    seq = ref["seq"]
+    check(len(ds) == DISK_ENTRY_FRAMES and np.array_equal(ds.K_slam, ref["ds"].K_slam)
           and (ds.W_slam, ds.H_slam, ds.W_map, ds.H_map) == (SYS_W, SYS_H, SYS_W, SYS_H),
           "phase 11a: the folder's dataset is not phase 8's stream")
     decode_a = host_decode_line(ds)
-    sys_, reg_s = make_system(dev, ds, cfg, args)
+    sys_, _ = make_system(dev, ds, cfg, args, ref["runner"])
     torch.cuda.synchronize()
     reset_launches()
     t0 = time.time()
@@ -1338,19 +1400,21 @@ def disk_stream_phase(dev, cfg, ref) -> tuple:
     est = sys_.frontend.estimated_trajectory()
     psnr = meta["metrics"].get("PSNR", float("nan"))
     check(sys_.loader == "python", f"phase 11a ran the {sys_.loader} loader")
-    if est.shape != ref["est"].shape or not np.array_equal(est, ref["est"]):
-        rows = (np.nonzero(np.any(est != ref["est"], axis=1))[0]
-                if est.shape == ref["est"].shape else [0])
-        check(False, f"phase 11a: poses differ from phase 8's from frame {int(rows[0])} "
-              f"({est.shape} against {ref['est'].shape})")
-    check(kf == ref["kf_frames"], f"phase 11a: keyframes {kf} != phase 8's {ref['kf_frames']}")
-    check(sys_.frontend.lost_number == ref["lost"] == 0,
+    if est.shape != seq["est"].shape or not np.array_equal(est, seq["est"]):
+        rows = (np.nonzero(np.any(est != seq["est"], axis=1))[0]
+                if est.shape == seq["est"].shape else [0])
+        check(False, f"phase 11a: poses differ from phase 8's sequential run from frame "
+              f"{int(rows[0])} ({est.shape} against {seq['est'].shape})")
+    check(kf == seq["kf_frames"], f"phase 11a: keyframes {kf} != phase 8's {seq['kf_frames']}")
+    check(sys_.frontend.lost_number == seq["lost"] == 0,
           f"phase 11a: {sys_.frontend.lost_number} lost")
-    check(psnr == ref["psnr"], f"phase 11a: test PSNR {psnr!r} != phase 8's {ref['psnr']!r}")
-    print(f"phase 11a folder, Python loader: {SYS_FRAMES} PNG frames {SYS_W}x{SYS_H} written in "
-          f"{write_s:.1f} s, oracle registered in {reg_s:.1f} s; keyframes {kf}, lost "
+    check(psnr == seq["psnr"], f"phase 11a: test PSNR {psnr!r} != phase 8's sequential run's "
+          f"{seq['psnr']!r}")
+    print(f"phase 11a folder, Python loader: {DISK_ENTRY_FRAMES} PNG frames {SYS_W}x{SYS_H} "
+          f"written in {write_s:.1f} s, phase 8's oracle; overlapped, keyframes {kf}, lost "
           f"{sys_.frontend.lost_number}, every pose and the test PSNR {psnr!r} dB bitwise "
-          f"phase 8's; {line}; {frame_ms_line(sys_, SYS_FRAMES, run_s)} (phase 8 "
+          f"phase 8's sequential run of those frames from memory; {line}; "
+          f"{frame_ms_line(sys_, DISK_ENTRY_FRAMES, run_s)} (phase 8 "
           f"{ref['ms']:.2f} ms, {ref['fps']:.2f} FPS); idle share {win_a.idle():.3f} over "
           f"frames {SYS_PROFILED[0]}-{SYS_PROFILED[1] - 1} (profiled); {decode_a}", flush=True)
     idle_a = win_a.idle()
@@ -2205,7 +2269,7 @@ def mesh_system_line(dev, cfg, mesh, ref) -> tuple:
 
     args = system_args(max_size_slam=SYS_W)
     ds = SyntheticDataset(args, n_frames=MESH_FRAMES, width=SYS_W, height=SYS_H)
-    sys_, reg_s = make_system(dev, ds, cfg, args)
+    sys_, _ = make_system(dev, ds, cfg, args, ref["runner"])
     sys_.enable_mesh(mesh)
     torch.cuda.synchronize()
     reset_launches()
@@ -2233,7 +2297,7 @@ def mesh_system_line(dev, cfg, mesh, ref) -> tuple:
     check(ate < 0.03, f"13d: ATE RMSE {ate} m")
     check(np.isfinite(psnr), f"13d: test PSNR {psnr}")
     out = (f"{MESH_FRAMES} frames of phase 8's stream at {SYS_W}x{SYS_H}, overlapped, "
-           f"{mesh.size} slots sharing one card (oracle registered in {reg_s:.1f} s): lost 0; "
+           f"{mesh.size} slots sharing one card (phase 8's oracle): lost 0; "
            f"keyframes {n_kf} at frames "
             f"{kf_frames} (phase 8: {want_kf}); dp steps {sm.n_dp_steps}, sharded renders "
             f"{sm.n_sharded_renders}; {line}; GN solves {len(fg.solves)}, all sharded; ATE "
@@ -3095,7 +3159,157 @@ def tools_phase() -> int:
     return launches
 
 
+def smi_sampler(stop, samples: list, period_s: float = 0.5) -> None:
+    """Append (time.time(), clocks.sm MHz, power.draw W, power.limit W,
+    temperature C) of the first card from ``nvidia-smi`` every ``period_s``
+    until ``stop`` is set."""
+    while not stop.is_set():
+        res = subprocess.run(["nvidia-smi", SMI_QUERY, "--format=csv,noheader,nounits"],
+                             capture_output=True, text=True)
+        if res.returncode == 0 and res.stdout.strip():
+            fields = [f.strip() for f in res.stdout.strip().splitlines()[0].split(",")]
+            samples.append((time.time(), *(float(f) for f in fields)))
+        stop.wait(period_s)
+
+
+def smi_window_line(samples: list, t0: float, t1: float) -> str:
+    """The samples' median, min and max inside [t0, t1]."""
+    inside = [s for s in samples if t0 <= s[0] <= t1]
+    check(len(inside) >= 2, f"phase 16b: {len(inside)} nvidia-smi samples in the steady window")
+    parts = []
+    for k, (name, unit) in enumerate((("SM clock", "MHz"), ("power", "W"), ("limit", "W"),
+                                      ("temperature", "C")), start=1):
+        v = [s[k] for s in inside]
+        parts.append(f"{name} {statistics.median(v):.0f} {unit} (min {min(v):.0f}, max "
+                     f"{max(v):.0f})")
+    return f"{len(inside)} samples over {t1 - t0:.1f} s: " + ", ".join(parts)
+
+
+def bench_launch_line(launches: dict, calls: dict) -> str:
+    """``check_system_launches``' rule on a System run reported by numbers
+    (the benchmark's subprocess): K1 = steps + renders, K2 = steps > 0, K3
+    = tracked + symmetric rows + pair matches."""
+    k3_want = calls["tracked"] + calls["match_rows"] + calls["pair_matches"]
+    check(launches["k3"] == k3_want, f"phase 16b: K3 launches {launches['k3']} != {k3_want} "
+          f"({calls})")
+    check(launches["bwd"] == calls["steps"] > 0,
+          f"phase 16b: K2 launches {launches['bwd']} != {calls['steps']} steps")
+    check(launches["fwd"] == calls["steps"] + calls["renders"],
+          f"phase 16b: K1 launches {launches['fwd']} != {calls['steps']} steps + "
+          f"{calls['renders']} renders")
+    return (f"launches K1 {launches['fwd']} (= {calls['steps']} steps + {calls['renders']} "
+            f"renders) K2 {launches['bwd']} K3 {launches['k3']} (= {calls['tracked']} tracked "
+            f"+ {calls['match_rows']} symmetric rows + {calls['pair_matches']} pair matches)")
+
+
+def bench_phase() -> dict:
+    """16a-b: ``python -m artdeco_tpu_torch.bench`` as users run it, a
+    subprocess, with ``nvidia-smi`` sampled beside it.  Checks the JSON
+    line's keys, the golden check, the ceiling against the published peak,
+    the pipeline's pose error and keyframes, and the pipeline's K1/K2/K3
+    launches (counted in the subprocess over the stream) against the calls
+    that launch them.  Returns those launches."""
+    import threading
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()     # the card's memory to the benchmark's process
+    stop, samples = threading.Event(), []
+    sampler = threading.Thread(target=smi_sampler, args=(stop, samples), daemon=True)
+    sampler.start()
+    t0 = time.time()
+    try:
+        res = subprocess.run(list(BENCH_CMD), cwd=ROOT, capture_output=True, text=True,
+                             timeout=BENCH_TIMEOUT)
+    finally:
+        stop.set()
+        sampler.join()
+    bench_s = time.time() - t0
+    check(res.returncode == 0, f"phase 16a: the benchmark exited {res.returncode}:\n"
+          f"{res.stdout[-2000:]}\n{res.stderr[-4000:]}")
+    last = res.stdout.strip().splitlines()[-1]
+    line = json.loads(last)
+    check(set(line) == {"metric", "value", "unit", "vs_baseline"}
+          and line["metric"] == "end_to_end_fps", f"phase 16a: last line {last}")
+    golden = [ln for ln in res.stderr.splitlines() if ln.startswith("golden[")]
+    check(len(golden) == 1 and " PASSED " in golden[0], f"phase 16a: golden line {golden}")
+    tagged = [ln for ln in res.stderr.splitlines() if ln.startswith("bench summary: ")]
+    check(len(tagged) == 1, "phase 16a: no bench summary on stderr")
+    sm = json.loads(tagged[0][len("bench summary: "):])
+    check(sm["sol_tflops"] < 1.05 * PEAK_BF16 / 1e12,
+          f"phase 16a: ceiling {sm['sol_tflops']:.1f} TFLOP/s over 105 % of the peak")
+    check(sm["max_pose_err"] < 0.05, f"phase 16a: keyframe pose error {sm['max_pose_err']}")
+    check(any(f > 0 for f in sm["keyframe_frames"]),
+          f"phase 16a: no keyframe after frame 0 ({sm['keyframe_frames']})")
+    st = sm["stages_ms"]
+    peak = PEAK_BF16 / 1e12
+    print(f"phase 16a bench ({sm['device']}; {bench_s:.1f} s): {last}", flush=True)
+    print(f"phase 16a numbers: golden {golden[0]}; ceiling bf16 4096^3 {sm['sol_ms']:.3f} ms "
+          f"-> {sm['sol_tflops']:.1f} TFLOP/s on random operands "
+          f"({100 * sm['sol_tflops'] / peak:.1f}% of {peak:.0f}), {sm['sol_zeros_tflops']:.1f} "
+          f"on zeros; MASt3R at 512x384 encode "
+          f"{sm['encode_ms']:.2f} ms wall / {sm['encode_device_ms']:.2f} device, decode+heads "
+          f"{sm['decode_ms']:.2f} / {sm['decode_device_ms']:.2f} (device busy ms, "
+          f"{sm['encode_device_ops']:.0f} and {sm['decode_device_ops']:.0f} device ops a "
+          f"call), {sm['encode_gflop']:.1f} + "
+          f"{sm['decode_gflop']:.1f} GFLOP, {sm['model_tflops']:.2f} TFLOP/s "
+          f"({100 * sm['model_tflops'] / sm['sol_tflops']:.2f}% of the ceiling, "
+          f"{100 * sm['model_tflops'] / peak:.2f}% of {peak:.0f}); pipeline "
+          f"{sm['pipeline_ms']:.2f} ms a frame (track {st['track']:.2f}, backend "
+          f"{st['backend']:.2f}, map {st['map']:.2f}), latency median "
+          f"{sm['latency_median_ms']:.2f} max {sm['latency_max_ms']:.2f} ms, "
+          f"{sm['n_gaussians']} Gaussians, keyframes {sm['keyframes']} at frames "
+          f"{sm['keyframe_frames']}, max pose error {sm['max_pose_err']:.5f}; "
+          f"{sm['fps']:.3f} FPS end to end", flush=True)
+    line16b = bench_launch_line(sm["launches"], sm["calls"])
+    print(f"phase 16b pipeline: {line16b}; nvidia-smi in the steady window: "
+          f"{smi_window_line(samples, *sm['steady_window'])}", flush=True)
+    return sm["launches"]
+
+
+def rows_line(rows: dict) -> str:
+    return ", ".join(f"{k} {v:.3f}" if isinstance(v, float) else f"{k} {v}"
+                     for k, v in rows.items())
+
+
+def profilers_phase(dev) -> None:
+    """16c: the four profilers in this process at their JAX sizes (profile_stages
+    with ``STAGE_REPEATS`` of its calls a row)."""
+    import torch
+    from artdeco_tpu_torch.scripts import (probe_transfers, profile_refine, profile_render,
+                                           profile_stages)
+
+    t0 = time.time()
+    for n, rows in profile_render.main(dev).items():
+        print(f"phase 16c profile_render N={n} (512x288, ms): {rows_line(rows)}", flush=True)
+    print(f"phase 16c profile_refine (288x512x24, ms): {rows_line(profile_refine.main(dev))}",
+          flush=True)
+    print(f"phase 16c probe_transfers (ms): {rows_line(probe_transfers.main(dev))}", flush=True)
+    rows = profile_stages.main(dev, repeats=STAGE_REPEATS)
+    check(rows["keyframes"] >= 2, f"phase 16c: profile_stages warmed to {rows['keyframes']} "
+          "keyframes")
+    print(f"phase 16c profile_stages (1024x576, SLAM 512x288, ms): {rows_line(rows)}",
+          flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 16c took {time.time() - t0:.1f} s", flush=True)
+
+
+def measurement_phase(dev) -> dict:
+    """Phase 16: the measurement tools (see the module docstring).  Returns
+    16b's launches."""
+    t_phase = time.time()
+    launches = bench_phase()
+    profilers_phase(dev)
+    print(f"phase 16 took {time.time() - t_phase:.1f} s", flush=True)
+    return launches
+
+
 def main() -> int:
+    # a fault in native code (a kernel, CUDA, a C extension) prints every thread's
+    # Python stack before the process dies
+    faulthandler.enable()
     sys.path.insert(0, ROOT)
     try:
         import torch
@@ -3359,6 +3573,11 @@ def main() -> int:
     # -- 13. the multi-device path ---------------------------------------------------
     mesh_launches = mesh_phase(dev, tcfg, sys_ref)
 
+    # phase 8's oracle served its sequential run, 11a and 13d
+    del sys_ref["runner"]
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # -- 14. the viewers ----------------------------------------------------------------
     view_launches = viewers_phase(dev, sys_ref, disk_ref)
 
@@ -3367,11 +3586,14 @@ def main() -> int:
     for name in ("fwd", "bwd", "k3"):
         check(tools_launches[name] > 0, f"phase 15c's run launched no {name}")
 
+    # -- 16. the measurement tools ------------------------------------------------------
+    bench_launches = measurement_phase(dev)
+
     # each path's own counts: the mapper stream (3), tracking (7), the oracle
     # system (8), the model-driven system (10), the streams from disk (11),
     # the System with the mesh (13d), the viewers (14a-c), the System
-    # with the web viewer (14d) and the evaluation matrix's run in this
-    # process (15c)
+    # with the web viewer (14d), the evaluation matrix's run in this
+    # process (15c) and the benchmark's pipeline (16b, counted in its process)
     by_phase = {"fwd": {"phase 3": launches["fwd"], "phase 8": sys_launches["fwd"],
                         "phase 10": model_launches["fwd"]},
                 "bwd": {"phase 3": launches["bwd"], "phase 8": sys_launches["bwd"],
@@ -3379,7 +3601,8 @@ def main() -> int:
                 "k3": {"phase 7": k3_launches, "phase 8": sys_launches["k3"],
                        "phase 10": model_launches["k3"]}}
     for part, counts in (*disk_launches.items(), ("phase 13d", mesh_launches),
-                         *view_launches.items(), ("phase 15c", tools_launches)):
+                         *view_launches.items(), ("phase 15c", tools_launches),
+                         ("phase 16b", bench_launches)):
         for k in ("fwd", "bwd", "k3"):
             if k in counts:
                 by_phase[k][part] = counts[k]
