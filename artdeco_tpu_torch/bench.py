@@ -131,7 +131,9 @@ def device_busy_ms(fn, n: int, device) -> tuple:
         for _ in range(n):
             fn()
         torch.cuda.synchronize(device)
-    ops = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    # a record_function range (a tracer span) projected onto the device is not work
+    ops = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
     return (sum(e.self_device_time_total for e in ops) / 1e3 / n,
             sum(e.count for e in ops) / n)
 

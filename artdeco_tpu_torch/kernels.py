@@ -18,8 +18,9 @@ import os
 import shutil
 import subprocess
 import tempfile
-import threading
 from pathlib import Path
+
+from artdeco_tpu_torch import trace
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
@@ -130,14 +131,12 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA launch failed with error {err}")
 
 
-_COUNT_LOCK = threading.Lock()
-
-
 def count_launch(wrapper, attr: str = "launches") -> None:
-    """Add one to ``wrapper.<attr>``, a kernel's launch count, under a lock:
-    the wrappers launch from several host threads (tracking, the mapper's
-    worker, the web viewer), and ``+= 1`` is not atomic across them."""
-    with _COUNT_LOCK:
+    """Add one to ``wrapper.<attr>``, a kernel's launch count, under the
+    tracer's lock: the wrappers launch from several host threads (tracking,
+    the mapper's worker, the web viewer), and ``+= 1`` is not atomic across
+    them."""
+    with trace.LOCK:
         setattr(wrapper, attr, getattr(wrapper, attr) + 1)
 
 

@@ -26,6 +26,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from artdeco_tpu_torch import trace
 from artdeco_tpu_torch.ops.refine_dense import refine_matches_dense_single
 
 EARLY_EXIT_FRAC = 0.002      # iter_proj's tail runs above this unconverged share
@@ -263,7 +264,10 @@ def match_iterative_proj(cfg: dict, X11, X21, D11, D21, idx_1_to_2_init=None):
 
 
 def match(cfg, X11, X21, D11, D21, idx_1_to_2_init=None):
-    return match_iterative_proj(cfg, X11, X21, D11, D21, idx_1_to_2_init)
+    """``match_iterative_proj`` as the runners call it: the tracer's
+    ``match.cascade`` span."""
+    with trace.span("match.cascade"):
+        return match_iterative_proj(cfg, X11, X21, D11, D21, idx_1_to_2_init)
 
 
 def match_pi3(cfg, X11, X21, idx_1_to_2_init=None):

@@ -18,11 +18,12 @@ holds its device-synchronised time and "copy" the copy to the host alone.
 from __future__ import annotations
 
 import os
-import time
 from typing import List
 
 import numpy as np
 import torch
+
+from artdeco_tpu_torch import trace
 
 MODES = ("splat", "depth", "alpha")
 
@@ -40,24 +41,6 @@ def _look_at(eye: np.ndarray, target: np.ndarray, up=(0, -1, 0)) -> np.ndarray:
     Rt[:3, :3] = R
     Rt[:3, 3] = -R @ eye
     return Rt
-
-
-class StageTimers:
-    """Seconds and counts per stage; ``sync_timing`` synchronises the
-    device at each stage boundary (see the module docstring)."""
-
-    def __init__(self):
-        self.timers: dict = {}
-        self.sync_timing = False
-
-    def _tick(self, key: str, t0: float, device: torch.device) -> float:
-        if self.sync_timing and device.type == "cuda":
-            torch.cuda.synchronize(device)
-        now = time.perf_counter()
-        acc = self.timers.setdefault(key, [0.0, 0])
-        acc[0] += now - t0
-        acc[1] += 1
-        return now
 
 
 def render_view(sm, Rt_w2c: torch.Tensor, width: int, height: int, slab=None,
@@ -81,14 +64,14 @@ def render_view(sm, Rt_w2c: torch.Tensor, width: int, height: int, slab=None,
                            sm.cfg.low_pass_filter_eps, sm.cfg.cluster_capacity)
 
 
-class GaussianViewer(StageTimers):
+class GaussianViewer(trace.Timed):
     """Headless viewer over a scene (a ``SceneModel`` or
     ``scene_io.load_scene_for_viewing``'s): splat / depth / alpha modes."""
 
     MODES = MODES
 
     def __init__(self, scene_model, width: int = 480, height: int = 270):
-        super().__init__()
+        self.timers = trace.Timers()
         self.sm = scene_model
         self.width = width
         self.height = height
@@ -99,17 +82,16 @@ class GaussianViewer(StageTimers):
         if mode not in MODES:
             raise ValueError(f"unknown mode {mode}")
         dev = self.sm.slab.xyz.device
-        t0 = time.perf_counter()
-        pkg = render_view(self.sm, np.asarray(Rt_w2c), self.width, self.height)
-        self.renders += 1
-        t0 = self._tick("render", t0, dev)
-        if mode == "splat":
-            img = torch.clamp(pkg["render"], 0, 1).cpu().numpy()
-        elif mode == "depth":
-            inv = pkg["invdepth"][0].cpu().numpy()
-        else:
-            img = np.repeat(pkg["alpha"].cpu().numpy(), 3, 0)
-        self._tick("copy", t0, dev)
+        with self.timers.span("render", dev):
+            pkg = render_view(self.sm, np.asarray(Rt_w2c), self.width, self.height)
+            self.renders += 1
+        with self.timers.span("copy", dev):
+            if mode == "splat":
+                img = torch.clamp(pkg["render"], 0, 1).cpu().numpy()
+            elif mode == "depth":
+                inv = pkg["invdepth"][0].cpu().numpy()
+            else:
+                img = np.repeat(pkg["alpha"].cpu().numpy(), 3, 0)
         if mode == "depth":
             lo, hi = np.percentile(inv, 5), np.percentile(inv, 95)
             img = np.repeat(np.clip((inv - lo) / max(hi - lo, 1e-9), 0, 1)[None], 3, 0)
@@ -146,14 +128,12 @@ class GaussianViewer(StageTimers):
 
         os.makedirs(out_dir, exist_ok=True)
         frames = self.turntable(n_frames, mode)
-        host = torch.device("cpu")
         samples = []
         for i, fr in enumerate(frames):
-            t0 = time.perf_counter()
-            write_png(os.path.join(out_dir, f"{mode}_{i:04d}.png"), fr)
-            t0 = self._tick("png", t0, host)
-            samples.append(encode_jpeg(fr))
-            self._tick("jpeg", t0, host)
+            with self.timers.span("png"):
+                write_png(os.path.join(out_dir, f"{mode}_{i:04d}.png"), fr)
+            with self.timers.span("jpeg"):
+                samples.append(encode_jpeg(fr))
         vid = os.path.join(out_dir, f"turntable_{mode}.mp4")
         write_mp4(vid, samples, self.width, self.height, fps=30)
         return vid

@@ -35,7 +35,6 @@ AOT prewarm machinery.
 
 from __future__ import annotations
 
-import contextlib
 import json
 import os
 import queue
@@ -46,6 +45,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from artdeco_tpu_torch import trace
 from artdeco_tpu_torch.device import float32_policy, resolve
 from artdeco_tpu_torch.geometry import lie
 from artdeco_tpu_torch.mapper import keyframe as KF
@@ -138,21 +138,6 @@ def rigid_transform_poses(pool: KF.KeyframePool, slam_T, TCkC, is_kf, mask):
     Rts = torch.where(m, KF.get_all_Rt(pool)[: slam_T.shape[0]], eye)
     new_safe = torch.where(m, new_Rt, eye)
     return new_Rt, torch.linalg.inv(new_safe), torch.linalg.inv(Rts)
-
-
-class Runtimes:
-    """Wall-clock stage counters (ms per call in ``summary``)."""
-
-    def __init__(self):
-        self.data: dict = {}
-
-    def add(self, key: str, dt: float):
-        acc = self.data.setdefault(key, [0.0, 0])
-        acc[0] += dt
-        acc[1] += 1
-
-    def summary(self) -> dict:
-        return {k: 1000.0 * v[0] / max(v[1], 1) for k, v in self.data.items()}
 
 
 # Map-resolution frames the native loader's cache keeps: mapper messages
@@ -442,7 +427,9 @@ class _MapperWorker:
     """Background consumer of the backend's work items, in message order:
     mapper-frame matching, dense points and the mapper.  Nothing here
     writes tracker-visible state.  The bounded queue is the backpressure;
-    an exception surfaces on the next ``submit`` or on ``close``."""
+    an exception surfaces on the next ``submit`` or on ``close``.  Each
+    item is its frame's request of the tracer: ``map.queue_wait`` from
+    submit to dequeue, then ``map.item``, its work (``System.timers``)."""
 
     def __init__(self, system, depth: int = 4):
         self.system = system
@@ -455,7 +442,7 @@ class _MapperWorker:
         if self.error is not None:
             err, self.error = self.error, None
             raise err
-        self.q.put((work, img_map))
+        self.q.put((work, img_map, time.perf_counter_ns()))
 
     def _run(self):
         while True:
@@ -463,12 +450,13 @@ class _MapperWorker:
             try:
                 if item is None:
                     return
-                work, img_map = item
-                t0 = time.time()
-                mm = self.system.backend.process_async(work)
-                if mm is not None:
-                    self.system._handle_mapper_msg(mm, img_map=img_map)
-                self.system.runtimes.add("map", time.time() - t0)
+                work, img_map, t_put = item
+                req = (work["stream"], work["frame_id"])
+                trace.interval("map.queue_wait", t_put, time.perf_counter_ns(), req)
+                with self.system.timers.span("map.item", request=req):
+                    mm = self.system.backend.process_async(work)
+                    if mm is not None:
+                        self.system._handle_mapper_msg(mm, img_map=img_map)
             except Exception as e:  # surfaced on the next submit/close
                 self.error = e
             finally:
@@ -556,7 +544,7 @@ class System:
             from artdeco_tpu_torch.parallel.mesh import make_mesh
 
             self.enable_mesh(make_mesh(n_dev, self.device))
-        self.runtimes = Runtimes()
+        self.timers = trace.Timers()      # map.item, mapper.step
         self.viewer = None               # the web viewer run_system attaches
         self.start_time = None
         self.n_frames = 0
@@ -632,7 +620,7 @@ class System:
         clock differs."""
         if overlap is None:
             overlap = bool(getattr(self.args, "async_pipeline", True))
-        self.start_time = time.time()
+        self.start_time = time.perf_counter()
         native = make_native_prefetcher(self.dataset) if use_native_loader else None
         self.loader = "python" if native is None else "native"
         if native is not None:
@@ -657,12 +645,9 @@ class System:
                 [ProfilerActivity.CUDA] if self.device.type == "cuda" else [])
             prof = profile(activities=acts, on_trace_ready=tensorboard_trace_handler(profile_dir))
             prof.start()
-            annotate = torch.profiler.record_function
-        else:
-            annotate = lambda name: contextlib.nullcontext()   # noqa: E731
         worker = _MapperWorker(self) if overlap else None
         try:
-            self._stream_loop(it, bar, max_frames, annotate, worker)
+            self._stream_loop(it, bar, max_frames, worker)
         finally:
             it.close()
             if worker is not None:
@@ -687,31 +672,25 @@ class System:
             self.mapper.map_cache.put(i, mp)
             yield ("native", slam), info
 
-    def _stream_loop(self, it, bar, max_frames, annotate, worker=None):
+    def _stream_loop(self, it, bar, max_frames, worker=None):
         for original_image, info in it:
-            t_frame = t0 = time.time()
-            with annotate("frontend.track"):
-                msg = self.frontend.process_frame(original_image, info)
-            self.runtimes.add("track", time.time() - t0)
+            t_frame = time.perf_counter()
+            msg = self.frontend.process_frame(original_image, info)
             if msg is not None:
-                t0 = time.time()
-                with annotate("backend.sync"):
-                    work = self.backend.process_sync(msg)
-                self.runtimes.add("backend", time.time() - t0)
+                work = self.backend.process_sync(msg)
                 if work is not None:
                     if worker is not None:
                         # the native loader's map image of the current frame;
                         # taken now, before the cache window moves past it
                         worker.submit(work, self.mapper.map_cache.pop(msg["frame_id"]))
                     else:
-                        t0 = time.time()
-                        with annotate("mapper.step"):
+                        with self.timers.span("mapper.step",
+                                              request=(work["stream"], work["frame_id"])):
                             mapper_msg = self.backend.process_async(work)
                             if mapper_msg is not None:
                                 self._handle_mapper_msg(mapper_msg)
-                        self.runtimes.add("map", time.time() - t0)
             self.n_frames += 1
-            self.frame_s.append(time.time() - t_frame)
+            self.frame_s.append(time.perf_counter() - t_frame)
             if bar is not None:
                 bar.update(1)
                 # the Gaussian count is a device readback: skipped while the
@@ -723,6 +702,21 @@ class System:
                 break
 
     # -- outputs --------------------------------------------------------------
+    def runtimes_ms(self) -> dict:
+        """Mean ms a call of each stage of the stream loop: "track"
+        (``Frontend.process_frame``), "backend" (``Backend.process_sync``),
+        "map" (a work item's mapper-facing half and mapper, on the worker
+        or inline); a stage that never ran is left out."""
+        stages = {"track": [self.frontend.timers.get("frontend.frame")],
+                  "backend": [self.backend.timers.get("backend.sync")],
+                  "map": [self.timers.get("map.item"), self.timers.get("mapper.step")]}
+        out = {}
+        for key, accs in stages.items():
+            accs = [a for a in accs if a]
+            if accs:
+                out[key] = 1000.0 * sum(a[0] for a in accs) / max(sum(a[1] for a in accs), 1)
+        return out
+
     def save(self, out_dir: str) -> dict:
         """Trajectories, lost share, config and trajectory evaluation under
         ``out_dir/slam``; the scene export (``SceneModel.save``); and
@@ -751,7 +745,7 @@ class System:
             eval_out = evaluate_trajectory(slam_dir, "evaluate_frames.json", est, gt,
                                            max_dt=0.05)
 
-        dt = time.time() - self.start_time if self.start_time else 0.0
+        dt = time.perf_counter() - self.start_time if self.start_time else 0.0
         scene_metrics = self.scene_model.save(out_dir, reconstruction_time=dt,
                                               n_frames=self.n_frames)
         metadata = {
@@ -760,7 +754,7 @@ class System:
             "n_frames": self.n_frames,
             "n_keyframes": len(self.keyframes),
             "n_gaussians": int(self.scene_model.n_active_gaussians),
-            "runtimes_ms": self.runtimes.summary(),
+            "runtimes_ms": self.runtimes_ms(),
             "metrics": {k: v for k, v in scene_metrics.items() if k in METRIC_KEYS},
             "trajectory": eval_out,
         }

@@ -28,22 +28,22 @@ import http.server
 import json
 import os
 import threading
-import time
 import traceback
 from functools import partial
 
 import numpy as np
 import torch
 
+from artdeco_tpu_torch import trace
 from artdeco_tpu_torch.runtime import websocket
-from artdeco_tpu_torch.runtime.gaussianviewer import StageTimers, render_view
+from artdeco_tpu_torch.runtime.gaussianviewer import render_view
 
 STATIC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "webviewer_static")
 
 
-class WebViewer(StageTimers):
+class WebViewer(trace.Timed):
     def __init__(self, scene_model, ip: str = "0.0.0.0", port: int = 6009):
-        super().__init__()
+        self.timers = trace.Timers()
         self.ip = ip
         self.port = port
         self.num_clients = 0
@@ -77,23 +77,20 @@ class WebViewer(StageTimers):
         if mode == "ellipsoid":
             slab = dataclasses.replace(slab, opacity=torch.full_like(slab.opacity, 6.0),
                                        f_rest=torch.zeros_like(slab.f_rest))
-        t0 = time.perf_counter()
-        pkg = render_view(sm, viewmat, res_x, res_y, slab=slab, gfeat=gfeat, mlp=mlp)
-        self.renders += 1
-        t0 = self._tick("render", t0, dev)
-        if mode == "depth":
-            inv = pkg["invdepth"][0].cpu().numpy()
-            t0 = self._tick("copy", t0, dev)
-            hi = max(float(np.percentile(inv, 99.0)), 1e-6)
-            img = np.clip(inv / hi, 0.0, 1.0)
-            arr = (np.stack([img] * 3, axis=-1) * 255).astype(np.uint8)
-        else:
-            img = torch.clamp(pkg["render"], 0, 1).cpu().numpy()
-            t0 = self._tick("copy", t0, dev)
-            arr = (img.transpose(1, 2, 0) * 255).astype(np.uint8)
-        buf = encode_jpeg(np.ascontiguousarray(arr))
-        self._tick("jpeg", t0, torch.device("cpu"))
-        return buf
+        with self.timers.span("render", dev):
+            pkg = render_view(sm, viewmat, res_x, res_y, slab=slab, gfeat=gfeat, mlp=mlp)
+            self.renders += 1
+        with self.timers.span("copy", dev):
+            src = pkg["invdepth"][0] if mode == "depth" else torch.clamp(pkg["render"], 0, 1)
+            host = src.cpu().numpy()
+        with self.timers.span("jpeg"):
+            if mode == "depth":
+                hi = max(float(np.percentile(host, 99.0)), 1e-6)
+                img = np.clip(host / hi, 0.0, 1.0)
+                arr = (np.stack([img] * 3, axis=-1) * 255).astype(np.uint8)
+            else:
+                arr = (host.transpose(1, 2, 0) * 255).astype(np.uint8)
+            return encode_jpeg(np.ascontiguousarray(arr))
 
     def _state_header(self) -> str:
         from artdeco_tpu_torch.mapper import keyframe as KFmod
@@ -141,12 +138,11 @@ class WebViewer(StageTimers):
                 traceback.print_exc()
                 ws.close(1011, "render failed")
                 return
-            t0 = time.perf_counter()
             try:
-                ws.send(reply)
+                with self.timers.span("send"):
+                    ws.send(reply)
             except websocket.ConnectionClosed:
                 return
-            self._tick("send", t0, torch.device("cpu"))
 
     def _bind(self) -> websocket.Server:
         self._server = websocket.Server(self._client_loop, self.ip, self.port)

@@ -17,12 +17,12 @@ and the JAX package agree.
 
 from __future__ import annotations
 
-import time
 from typing import Optional
 
 import numpy as np
 import torch
 
+from artdeco_tpu_torch import trace
 from artdeco_tpu_torch.device import resolve
 from artdeco_tpu_torch.geometry import lie
 from artdeco_tpu_torch.geometry import projection as proj
@@ -92,11 +92,13 @@ def cross_writeback(T_WCk, T_WCl, Xlk):
     return lie.sim3_act(rel_sim3(T_WCl, T_WCk), Xlk)
 
 
-class Backend:
+class Backend(trace.Timed):
     """Relocalization, per-keyframe global optimization and the mapper
-    messages.  ``timers`` sums wall time per stage ("bkd.*"); with
-    ``sync_timing`` the device is synchronised at each stage boundary
-    (the factor graph's timers too)."""
+    messages.  ``timers`` sums wall time per stage ("bkd.*", and
+    "backend.sync" a message); with ``sync_timing`` the device is
+    synchronised at each stage boundary (the factor graph's timers too).
+    Each message is its frame's request of the tracer (``stream``,
+    ``frame_id``), and so is the work item it makes."""
 
     def __init__(self, args, config: dict, dataset, keyframes: KeyframeStore, runner,
                  retrieval: Optional[RetrievalDatabase] = None, *, device=None):
@@ -113,25 +115,12 @@ class Backend:
         self.factor_graph = FactorGraph(config, runner, keyframes, dataset.K_slam,
                                         (self.H_slam, self.W_slam), device=self.device)
         self.retrieval = retrieval or RetrievalDatabase(config)
-        self.timers: dict = {}
+        self.timers = trace.Timers()
         self.pair_matches = 0    # match_asymmetric calls (one K3 launch each)
 
-    @property
-    def sync_timing(self) -> bool:
-        return self.factor_graph.sync_timing
-
-    @sync_timing.setter
+    @trace.Timed.sync_timing.setter
     def sync_timing(self, on: bool) -> None:
-        self.factor_graph.sync_timing = on
-
-    def _t(self, key: str, t0: float) -> float:
-        if self.sync_timing and self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        now = time.perf_counter()
-        acc = self.timers.setdefault(key, [0.0, 0])
-        acc[0] += now - t0
-        acc[1] += 1
-        return now
+        self.timers.sync_timing = self.factor_graph.sync_timing = bool(on)
 
     def _retrieve(self, feat, add_after_query: bool) -> list:
         rc = self.config["retrieval"]
@@ -146,9 +135,14 @@ class Backend:
     def process_sync(self, msg: dict) -> Optional[dict]:
         """The tracker-visible half: relocalization or the keyframe's global
         optimization.  Returns a work item of value snapshots, or None."""
+        with self.timers.span("backend.sync", request=(msg.get("stream"), msg["frame_id"])):
+            return self._process_sync(msg)
+
+    def _process_sync(self, msg: dict) -> Optional[dict]:
         style = msg["keyframe_style"]
         common = dict(is_test=msg["is_test"], is_important=msg["is_important"],
-                      focal=msg["focal"], timestamp=msg["timestamp"])
+                      focal=msg["focal"], timestamp=msg["timestamp"],
+                      frame_id=msg["frame_id"], stream=msg.get("stream"))
         if style == int(KeyframeStyle.LOST):
             frame = msg["frame"]
             X, C, feat, pos = self.runner.inference_mono(frame.img)
@@ -180,6 +174,10 @@ class Backend:
 
     def process_async(self, work: dict) -> Optional[dict]:
         """The mapper-facing half: the mapper message of a work item."""
+        with trace.request((work["stream"], work["frame_id"])):
+            return self._process_async(work)
+
+    def _process_async(self, work: dict) -> Optional[dict]:
         kind = work["kind"]
         common = dict(is_test=work["is_test"], is_important=work["is_important"],
                       focal=work["focal"], timestamp=work["timestamp"])
@@ -218,56 +216,56 @@ class Backend:
         ``track_match`` is the frontend's decode of this keyframe's pair
         (``CameraTracker.take_last_pair``), reused instead of matching the
         pair again.  Returns (lc_inds, idx_k2l, keyframe, last_keyframe)."""
-        t0 = time.perf_counter()
         n_consec = n_consec if n_consec is not None else self.num_GBA
-        keyframe = self.keyframes[idx]
-        last_keyframe = self.keyframes[idx - 1] if idx > 0 else None
-        idx_k2l = Xlk = Clk = None
-        tm = track_match
-        if last_keyframe is not None:
-            if tm is not None and tm.get("kind") == "pair" and tm.get("last_idx") == idx - 1:
-                idx_k2l, Xkk, Ckk = tm["idx"], tm["Xkk"], tm["Ckk"]
-                Xlk, Clk, feat_k, pos_k = tm["Xlk"], tm["Clk"], tm["feat"], tm["pos"]
+        span, dev = self.timers.span, self.device
+        with span("bkd.match_asym", dev):
+            keyframe = self.keyframes[idx]
+            last_keyframe = self.keyframes[idx - 1] if idx > 0 else None
+            idx_k2l = Xlk = Clk = None
+            tm = track_match
+            if last_keyframe is not None:
+                if tm is not None and tm.get("kind") == "pair" and tm.get("last_idx") == idx - 1:
+                    idx_k2l, Xkk, Ckk = tm["idx"], tm["Xkk"], tm["Ckk"]
+                    Xlk, Clk, feat_k, pos_k = tm["Xlk"], tm["Clk"], tm["feat"], tm["pos"]
+                else:
+                    (idx_k2l, _, Xkk, Ckk, _, Xlk, Clk, _, feat_k, pos_k
+                     ) = self.runner.match_asymmetric(
+                        keyframe.img, last_keyframe.img,
+                        embeddings_j=self.keyframes.get_embedding(idx - 1))
+                    self.pair_matches += 1
+            elif tm is not None and tm.get("kind") == "mono":
+                Xkk, Ckk, feat_k, pos_k = tm["X"][0], tm["C"][0], tm["feat"], tm["pos"]
             else:
-                (idx_k2l, _, Xkk, Ckk, _, Xlk, Clk, _, feat_k, pos_k
-                 ) = self.runner.match_asymmetric(
-                    keyframe.img, last_keyframe.img,
-                    embeddings_j=self.keyframes.get_embedding(idx - 1))
-                self.pair_matches += 1
-        elif tm is not None and tm.get("kind") == "mono":
-            Xkk, Ckk, feat_k, pos_k = tm["X"][0], tm["C"][0], tm["feat"], tm["pos"]
-        else:
-            Xm, Cm, feat_k, pos_k = self.runner.inference_mono(keyframe.img)
-            Xkk, Ckk = Xm[0], Cm[0]
-        t0 = self._t("bkd.match_asym", t0)
-        self.keyframes.put_embedding(idx, feat_k, pos_k)
-        keyframe = keyframe.update_pointmap(Xkk, Ckk)
-        self.keyframes[idx] = keyframe
-        t0 = self._t("bkd.pointmap_update", t0)
+                Xm, Cm, feat_k, pos_k = self.runner.inference_mono(keyframe.img)
+                Xkk, Ckk = Xm[0], Cm[0]
+        with span("bkd.pointmap_update", dev):
+            self.keyframes.put_embedding(idx, feat_k, pos_k)
+            keyframe = keyframe.update_pointmap(Xkk, Ckk)
+            self.keyframes[idx] = keyframe
 
         # candidate edges: consecutive + retrieval
-        kf_idx = [idx - 1 - j for j in range(min(n_consec, idx))]
-        retrieval_inds = self._retrieve(feat_k, add_after_query=True)
-        t0 = self._t("bkd.retrieval", t0)
+        with span("bkd.retrieval", dev):
+            kf_idx = [idx - 1 - j for j in range(min(n_consec, idx))]
+            retrieval_inds = self._retrieve(feat_k, add_after_query=True)
         kf_idx += retrieval_inds
         lc_inds = set(retrieval_inds)
         lc_inds.add(idx)
         kf_list = sorted(set(kf_idx) - {idx})
-        if kf_list:
-            self.factor_graph.add_factors(kf_list, [idx] * len(kf_list),
-                                          self.config["local_opt"]["min_match_frac"])
-        t0 = self._t("bkd.add_factors", t0)
-        self.factor_graph.solve_GN_calib()
-        t0 = self._t("bkd.solve_GN", t0)
+        with span("bkd.add_factors", dev):
+            if kf_list:
+                self.factor_graph.add_factors(kf_list, [idx] * len(kf_list),
+                                              self.config["local_opt"]["min_match_frac"])
+        with span("bkd.solve_GN", dev):
+            self.factor_graph.solve_GN_calib()
 
         # refresh the last keyframe's pointmap with the cross-prediction
-        keyframe = self.keyframes[idx]
-        last_keyframe = self.keyframes[idx - 1] if idx > 0 else None
-        if last_keyframe is not None and Xlk is not None:
-            Xll = cross_writeback(keyframe.T_WC, last_keyframe.T_WC, Xlk)
-            last_keyframe = last_keyframe.update_pointmap(Xll, Clk)
-            self.keyframes[idx - 1] = last_keyframe
-        self._t("bkd.writeback", t0)
+        with span("bkd.writeback", dev):
+            keyframe = self.keyframes[idx]
+            last_keyframe = self.keyframes[idx - 1] if idx > 0 else None
+            if last_keyframe is not None and Xlk is not None:
+                Xll = cross_writeback(keyframe.T_WC, last_keyframe.T_WC, Xlk)
+                last_keyframe = last_keyframe.update_pointmap(Xll, Clk)
+                self.keyframes[idx - 1] = last_keyframe
         return lc_inds, idx_k2l, keyframe, last_keyframe
 
     # -- relocalization --------------------------------------------------------

@@ -10,12 +10,12 @@ frame runs the runner's match (the matching cascade, K3 included) and
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Optional
 
 import numpy as np
 import torch
 
+from artdeco_tpu_torch import trace
 from artdeco_tpu_torch.device import resolve
 from artdeco_tpu_torch.geometry import lie
 from artdeco_tpu_torch.vslam import tracker as trk
@@ -24,7 +24,7 @@ from artdeco_tpu_torch.vslam.keyframes import KeyframeStore
 from artdeco_tpu_torch.vslam.tracker import TrackingConfig
 
 
-class CameraTracker:
+class CameraTracker(trace.Timed):
     """Two-view tracking against the last keyframe.
 
     ``timers`` sums wall time per stage ("trk.match", "trk.step"); with
@@ -47,22 +47,12 @@ class CameraTracker:
         self.optimize_focal = optimize_focal
         self.covariance_filter = covariance_filter
         self.point_fusion = point_fusion
-        self.timers: dict = {}
-        self.sync_timing = False
+        self.timers = trace.Timers()
         self.idx_f2k = None
         self.last_embedding = None
         self._emb_kf_idx = -1   # keyframe index last_embedding belongs to
         self.last_dist = 0.0
         self._last_pair = None
-
-    def _tick(self, key: str, t0: float) -> float:
-        if self.sync_timing and self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        now = time.perf_counter()
-        acc = self.timers.setdefault(key, [0.0, 0])
-        acc[0] += now - t0
-        acc[1] += 1
-        return now
 
     def track_init(self, frame: Frame):
         X, C, feat, pos = self.runner.inference_mono(frame.img)
@@ -93,23 +83,24 @@ class CameraTracker:
             self._emb_kf_idx = kf_idx
             frame = dataclasses.replace(frame, T_WC=keyframe.T_WC)
 
-        t0 = time.perf_counter()
-        (idx_f2k, valid_match_k, Xff, Cff, Qff, Xkf, Ckf, Qkf, featf, posf
-         ) = self.runner.match_asymmetric(frame.img, keyframe.img, idx_i2j_init=self.idx_f2k,
-                                          embeddings_j=self.last_embedding)
-        t0 = self._tick("trk.match", t0)
+        with self.timers.span("trk.match", self.device):
+            (idx_f2k, valid_match_k, Xff, Cff, Qff, Xkf, Ckf, Qkf, featf, posf
+             ) = self.runner.match_asymmetric(frame.img, keyframe.img,
+                                              idx_i2j_init=self.idx_f2k,
+                                              embeddings_j=self.last_embedding)
         self.idx_f2k = idx_f2k
         self._last_pair = dict(kind="pair", last_idx=kf_idx, idx=idx_f2k, valid=valid_match_k,
                                Xkk=Xff, Ckk=Cff, Qkk=Qff, Xlk=Xkf, Clk=Ckf, Qlk=Qkf,
                                feat=featf, pos=posf)
-        (fX, fC, fN, T_WCf, T_CkCf, K_new, kX, kC, kN, flags) = trk.track_step(
-            Xff, Cff, frame.X_canon, frame.C, frame.N, Xkf, Ckf, keyframe.X_canon,
-            keyframe.C, keyframe.N, idx_f2k, valid_match_k, Qff, Qkf, frame.T_WC,
-            keyframe.T_WC, self.K_slam, float(self.last_dist), float(self.min_displacement),
-            (self.H_slam, self.W_slam), self.cfg, thres_keyframe=float(self.thres_keyframe),
-            optimize_focal=self.optimize_focal, covariance_filter=self.covariance_filter)
-        match_frac, ok, is_kf_f, is_km_f, dist = flags.tolist()    # the one pull
-        self._tick("trk.step", t0)
+        with self.timers.span("trk.step", self.device):
+            (fX, fC, fN, T_WCf, T_CkCf, K_new, kX, kC, kN, flags) = trk.track_step(
+                Xff, Cff, frame.X_canon, frame.C, frame.N, Xkf, Ckf, keyframe.X_canon,
+                keyframe.C, keyframe.N, idx_f2k, valid_match_k, Qff, Qkf, frame.T_WC,
+                keyframe.T_WC, self.K_slam, float(self.last_dist),
+                float(self.min_displacement), (self.H_slam, self.W_slam), self.cfg,
+                thres_keyframe=float(self.thres_keyframe), optimize_focal=self.optimize_focal,
+                covariance_filter=self.covariance_filter)
+            match_frac, ok, is_kf_f, is_km_f, dist = flags.tolist()    # the one pull
         frame = dataclasses.replace(frame, X_canon=fX, C=fC, N=fN)
         if match_frac < self.cfg.min_match_frac or ok < 0.5:
             return frame, True, False, False
@@ -133,7 +124,11 @@ class CameraTracker:
 
 
 class Frontend:
-    """Tracks each frame and produces the backend's messages."""
+    """Tracks each frame and produces the backend's messages.
+
+    Each frame is a request of the tracer, ``(stream.id, frame_id)``: its
+    root span ``frontend.frame`` (in ``timers``), and the message carries
+    ``stream`` and ``frame_id`` on to the backend and the mapper's worker."""
 
     def __init__(self, args, config: dict, dataset, keyframes: KeyframeStore, runner, *,
                  device=None):
@@ -155,6 +150,8 @@ class Frontend:
         self.lost_number = 0
         self.last_T_WC = lie.sim3_identity(device=self.device)
         self.frame_id = 0
+        self.timers = trace.Timers()
+        self.stream = trace.Stream()
 
     def upload(self, original_image):
         """(H, W, 3) raw frame -> the SLAM image on the device.  A runner
@@ -173,6 +170,10 @@ class Frontend:
         ``original_image`` is an (H, W, 3) raw frame, or ("slam_dev", img)
         when an upload-ahead thread already put the SLAM image on the
         device (and bound it to its frame: ``runtime/system._UploadAhead``)."""
+        with self.timers.span("frontend.frame", request=(self.stream.id, self.frame_id)):
+            return self._process_frame(original_image, info)
+
+    def _process_frame(self, original_image, info: dict) -> Optional[dict]:
         if isinstance(original_image, tuple) and original_image[0] == "slam_dev":
             img_slam = original_image[1]
         else:
@@ -215,6 +216,7 @@ class Frontend:
             "is_test": bool(is_test),
             "keyframe_id": self.keyframes.last_index(),
             "frame_id": frame.frame_id,
+            "stream": self.stream.id,
             "T_WC": frame.T_WC.detach().cpu().numpy(),
             "timestamp": timestamp,
             "focal": float(self.tracker.K_slam[0, 0]),

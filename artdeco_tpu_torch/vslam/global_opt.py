@@ -36,11 +36,11 @@ What the tensor form changes, and why the results are the JAX package's:
 from __future__ import annotations
 
 import functools
-import time
 
 import numpy as np
 import torch
 
+from artdeco_tpu_torch import trace
 from artdeco_tpu_torch.device import resolve
 from artdeco_tpu_torch.geometry import lie
 from artdeco_tpu_torch.geometry import projection as proj
@@ -426,7 +426,7 @@ def _pow2(n, lo=8):
     return c
 
 
-class FactorGraph:
+class FactorGraph(trace.Timed):
     """Edge store with two-way matching (``global_opt.py:563-1161`` of the
     JAX package, without its AOT prewarm); ``enable_mesh`` shards the dense
     GN's edges over a mesh.
@@ -457,8 +457,7 @@ class FactorGraph:
         self.e_valid = np.zeros(self._cap, bool)
         self._dev_edges: dict = {}    # 'idx' int32, 'vm' bool, 'q' f32, (capE, HW)
         self._dev_ecap = 0
-        self.timers: dict = {}
-        self.sync_timing = False
+        self.timers = trace.Timers()
         self.solves: list = []        # (P, E, n_edges) of each solve
         self.match_rows = 0           # rows matched by add_factors (K3 launches)
         self.mesh = None              # enable_mesh
@@ -470,15 +469,6 @@ class FactorGraph:
         (``gauss_newton_calib_sharded``); ``None`` turns it off."""
         self.mesh = mesh
         self.mesh_axis = axis
-
-    def _t(self, key: str, t0: float) -> float:
-        if self.sync_timing and self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        now = time.perf_counter()
-        acc = self.timers.setdefault(key, [0.0, 0])
-        acc[0] += now - t0
-        acc[1] += 1
-        return now
 
     def __len__(self):
         return len(self.ii)
@@ -541,25 +531,25 @@ class FactorGraph:
         unless ``is_reloc``, where any failure rejects the lot)."""
         if not ii:
             return False
-        t0 = time.perf_counter()
+        span, dev = self.timers.span, self.device
         n_real = len(ii)
         pad_to = _pow2(n_real, lo=1)
-        ii = list(ii) + [ii[-1]] * (pad_to - n_real)
-        jj = list(jj) + [jj[-1]] * (pad_to - n_real)
-        emb_i = [self.keyframes.get_embedding(i) for i in ii]
-        emb_j = [self.keyframes.get_embedding(j) for j in jj]
-        feat_i = torch.cat([e[0] for e in emb_i])
-        pos_i = torch.cat([e[1] for e in emb_i])
-        feat_j = torch.cat([e[0] for e in emb_j])
-        pos_j = torch.cat([e[1] for e in emb_j])
-        (idx_i2j, idx_j2i, vm_j, vm_i, Qii, Qjj, Qji, Qij) = self.runner.match_symmetric(
-            feat_i, pos_i, feat_j, pos_j, (self.h, self.w))
+        with span("fg.match_sym", dev):
+            ii = list(ii) + [ii[-1]] * (pad_to - n_real)
+            jj = list(jj) + [jj[-1]] * (pad_to - n_real)
+            emb_i = [self.keyframes.get_embedding(i) for i in ii]
+            emb_j = [self.keyframes.get_embedding(j) for j in jj]
+            feat_i = torch.cat([e[0] for e in emb_i])
+            pos_i = torch.cat([e[1] for e in emb_i])
+            feat_j = torch.cat([e[0] for e in emb_j])
+            pos_j = torch.cat([e[1] for e in emb_j])
+            (idx_i2j, idx_j2i, vm_j, vm_i, Qii, Qjj, Qji, Qij) = self.runner.match_symmetric(
+                feat_i, pos_i, feat_j, pos_j, (self.h, self.w))
         self.match_rows += 2 * pad_to
-        t0 = self._t("fg.match_sym", t0)
-        Qj, Qi, fracs = self._edge_post(idx_i2j, idx_j2i, vm_j, vm_i, Qii, Qjj, Qji, Qij,
-                                        float(self.cfg["Q_conf"]))
-        fracs = fracs.cpu().numpy()          # (2, b): the only payload pulled
-        t0 = self._t("fg.fracs_pull", t0)
+        with span("fg.fracs_pull", dev):
+            Qj, Qi, fracs = self._edge_post(idx_i2j, idx_j2i, vm_j, vm_i, Qii, Qjj, Qji, Qij,
+                                            float(self.cfg["Q_conf"]))
+            fracs = fracs.cpu().numpy()          # (2, b): the only payload pulled
         frac_j, frac_i = fracs[0][:n_real], fracs[1][:n_real]
 
         ii_arr = np.asarray(ii[:n_real])
@@ -573,27 +563,27 @@ class FactorGraph:
         if not keep.any():
             return False
 
-        kept = np.flatnonzero(keep)
-        nk = kept.size
-        self._ensure_capacity(2 * nk)
-        self._ensure_dev_capacity(self.n_directed + 2 * nk)
-        # rows [base, base+nk) hold i->j, rows [base+nk, base+2nk) hold j->i
-        base = self.n_directed
-        kj = torch.as_tensor(kept, device=idx_i2j.device)
-        rows = slice(base, base + 2 * nk)
-        self._dev_edges["idx"][rows] = torch.cat([idx_i2j[kj], idx_j2i[kj]]).to(torch.int32)
-        self._dev_edges["vm"][rows] = torch.cat([vm_j[kj, :, 0], vm_i[kj, :, 0]])
-        self._dev_edges["q"][rows] = torch.cat([Qj[kj], Qi[kj]])
-        self.e_ii[base: base + nk] = ii_arr[kept]
-        self.e_jj[base: base + nk] = jj_arr[kept]
-        self.e_ii[base + nk: base + 2 * nk] = jj_arr[kept]
-        self.e_jj[base + nk: base + 2 * nk] = ii_arr[kept]
-        self.e_valid[base: base + 2 * nk] = True
-        self.n_directed += 2 * nk
-        for r in kept:
-            self.ii.append(int(ii_arr[r]))
-            self.jj.append(int(jj_arr[r]))
-        self._t("fg.edge_store", t0)
+        with span("fg.edge_store", dev):
+            kept = np.flatnonzero(keep)
+            nk = kept.size
+            self._ensure_capacity(2 * nk)
+            self._ensure_dev_capacity(self.n_directed + 2 * nk)
+            # rows [base, base+nk) hold i->j, rows [base+nk, base+2nk) hold j->i
+            base = self.n_directed
+            kj = torch.as_tensor(kept, device=idx_i2j.device)
+            rows = slice(base, base + 2 * nk)
+            self._dev_edges["idx"][rows] = torch.cat([idx_i2j[kj], idx_j2i[kj]]).to(torch.int32)
+            self._dev_edges["vm"][rows] = torch.cat([vm_j[kj, :, 0], vm_i[kj, :, 0]])
+            self._dev_edges["q"][rows] = torch.cat([Qj[kj], Qi[kj]])
+            self.e_ii[base: base + nk] = ii_arr[kept]
+            self.e_jj[base: base + nk] = jj_arr[kept]
+            self.e_ii[base + nk: base + 2 * nk] = jj_arr[kept]
+            self.e_jj[base + nk: base + 2 * nk] = ii_arr[kept]
+            self.e_valid[base: base + 2 * nk] = True
+            self.n_directed += 2 * nk
+            for r in kept:
+                self.ii.append(int(ii_arr[r]))
+                self.jj.append(int(jj_arr[r]))
         return True
 
     def _solver_statics(self) -> dict:
@@ -613,51 +603,50 @@ class FactorGraph:
     def solve_GN_calib(self):
         """One global GN over every keyframe an edge touches; writes back
         all poses but the pinned prefix."""
-        t0 = time.perf_counter()
         pin = int(self.cfg["pin"])
         n_e = self.n_directed
         uniq = np.unique(np.stack([self.e_ii[:n_e], self.e_jj[:n_e]]))
         if uniq.size <= pin:
             return
-        remap = np.zeros(int(uniq.max()) + 1, np.int64)
-        remap[uniq] = np.arange(uniq.size)
+        span, dev = self.timers.span, self.device
+        with span("gn.prep", dev):
+            remap = np.zeros(int(uniq.max()) + 1, np.int64)
+            remap[uniq] = np.arange(uniq.size)
 
-        P = _pow2(uniq.size, lo=32)
-        T = np.tile(np.asarray([0, 0, 0, 0, 0, 0, 1, 1], np.float32), (P, 1))
-        T[: uniq.size] = self.keyframes.T_WC[uniq]
-        used = np.zeros(P, bool)
-        used[: uniq.size] = True
-        dev = self.device
-        K = torch.as_tensor(self.K, device=dev)
-        # pointmaps of the poses in the solve (rows past uniq.size are never
-        # read: no edge references a padding pose)
-        Xs = proj.constrain_points_to_ray(
-            (self.h, self.w), torch.stack([self.keyframes.X_dev(int(k)) for k in uniq]), K)
-        Cs = torch.stack([self.keyframes.C_dev(int(k))
-                          / torch.clamp_min(self.keyframes.N_dev(int(k)), 1).float()
-                          for k in uniq])
+            P = _pow2(uniq.size, lo=32)
+            T = np.tile(np.asarray([0, 0, 0, 0, 0, 0, 1, 1], np.float32), (P, 1))
+            T[: uniq.size] = self.keyframes.T_WC[uniq]
+            used = np.zeros(P, bool)
+            used[: uniq.size] = True
+            K = torch.as_tensor(self.K, device=dev)
+            # pointmaps of the poses in the solve (rows past uniq.size are
+            # never read: no edge references a padding pose)
+            Xs = proj.constrain_points_to_ray(
+                (self.h, self.w), torch.stack([self.keyframes.X_dev(int(k)) for k in uniq]), K)
+            Cs = torch.stack([self.keyframes.C_dev(int(k))
+                              / torch.clamp_min(self.keyframes.N_dev(int(k)), 1).float()
+                              for k in uniq])
 
-        # E: the JAX package's edge pad, bounded by the host arrays' capacity
-        E = min(_pow2(n_e, lo=64), self._cap, self._dev_ecap)
-        ii_p = torch.as_tensor(remap[self.e_ii[:E]], device=dev)
-        jj_p = torch.as_tensor(remap[self.e_jj[:E]], device=dev)
-        solver = (gauss_newton_calib if P <= self.DENSE_POSE_LIMIT
-                  else gauss_newton_calib_sparse)
-        if (self.mesh is not None and P <= self.DENSE_POSE_LIMIT
-                and E % self.mesh.shape[self.mesh_axis] == 0):
-            solver = functools.partial(gauss_newton_calib_sharded, self.mesh, self.mesh_axis)
-            self.sharded_solves += 1
-        t0 = self._t("gn.prep", t0)
-        with torch.profiler.record_function("gn.solve"):
+            # E: the JAX package's edge pad, bounded by the host arrays' capacity
+            E = min(_pow2(n_e, lo=64), self._cap, self._dev_ecap)
+            ii_p = torch.as_tensor(remap[self.e_ii[:E]], device=dev)
+            jj_p = torch.as_tensor(remap[self.e_jj[:E]], device=dev)
+            solver = (gauss_newton_calib if P <= self.DENSE_POSE_LIMIT
+                      else gauss_newton_calib_sparse)
+            if (self.mesh is not None and P <= self.DENSE_POSE_LIMIT
+                    and E % self.mesh.shape[self.mesh_axis] == 0):
+                solver = functools.partial(gauss_newton_calib_sharded, self.mesh,
+                                           self.mesh_axis)
+                self.sharded_solves += 1
+        with span("gn.solve", dev):
             T_new = solver(
                 torch.as_tensor(T, device=dev), Xs, Cs, K, ii_p, jj_p,
                 self._dev_edges["idx"][:E], self._dev_edges["vm"][:E],
                 self._dev_edges["q"][:E, :, None],
                 torch.as_tensor(self.e_valid[:E], device=dev),
                 torch.as_tensor(used, device=dev), self.h, self.w, **self._solver_statics())
-        t0 = self._t("gn.solve", t0)
-        T_new = T_new.cpu().numpy()
-        self._t("gn.pose_pull", t0)
+        with span("gn.pose_pull", dev):
+            T_new = T_new.cpu().numpy()
         self.solves.append((P, E, n_e))
         upd = uniq[pin:]
         self.keyframes.update_T_WCs(T_new[remap[upd]], upd)

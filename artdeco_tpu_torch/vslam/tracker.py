@@ -25,6 +25,7 @@ from typing import NamedTuple
 
 import torch
 
+from artdeco_tpu_torch import trace
 from artdeco_tpu_torch.geometry import lie, projection as proj, robust
 from artdeco_tpu_torch.geometry.uncertainty import local_diag_cov
 from artdeco_tpu_torch.vslam.frame import average_conf, fuse_pointmap
@@ -112,17 +113,20 @@ def _solve_gn(sqrt_info, r, J, huber_k: float):
 def _lm(step_fn, T0, max_iters: int):
     """Iterate ``step_fn(T, old_cost) -> (T', cost, done, ok_i)`` from T0
     until convergence, failure or ``max_iters``, as the JAX package's
-    while_loop does.  Returns (T, ok, iterations)."""
-    T, old_cost = T0, torch.full((), float("inf"), device=T0.device)
-    ok = torch.ones((), dtype=torch.bool, device=T0.device)
-    it = 0
-    while it < max_iters:
-        T, new_cost, done, ok_i = step_fn(T, old_cost)
-        ok = ok & ok_i
-        old_cost = new_cost
-        it += 1
-        if bool(done | ~ok):          # one host sync per iteration
-            break
+    while_loop does.  Returns (T, ok, iterations); the iterations, each a
+    host round trip, go to the ``trk.lm_iters`` counter."""
+    with trace.span("trk.lm"):
+        T, old_cost = T0, torch.full((), float("inf"), device=T0.device)
+        ok = torch.ones((), dtype=torch.bool, device=T0.device)
+        it = 0
+        while it < max_iters:
+            T, new_cost, done, ok_i = step_fn(T, old_cost)
+            ok = ok & ok_i
+            old_cost = new_cost
+            it += 1
+            if bool(done | ~ok):          # one host sync per iteration
+                break
+    trace.count("trk.lm_iters", it)
     return T, ok, it
 
 

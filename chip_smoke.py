@@ -433,7 +433,6 @@ def kernel_split(fn, n=10) -> str:
     """Device ms per call of each kernel that ``fn`` launches
     (torch.profiler over n calls, after one warm-up call)."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -442,7 +441,7 @@ def kernel_split(fn, n=10) -> str:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    dev = device_events(prof)
     # "void ns::name<...>(...)" -> "name"
     names = [re.split(r"[<(]", e.key.replace("(anonymous namespace)::", "")
                       .removeprefix("void "))[0].split("::")[-1] for e in dev]
@@ -620,13 +619,14 @@ def profile_window(fn, n_steps: int, what: str, ranges=()) -> str:
     return summarize_profile(prof, window_ms, n_steps, what, ranges)
 
 
-def device_events(prof, ranges=()) -> list:
+def device_events(prof) -> list:
     """The profile's device kernels, memcpys and memsets (key averages);
-    a ``record_function`` range's span on the device timeline is not one."""
+    a ``record_function`` range's span on the device timeline (each span of
+    the program's tracer is one while the profiler records) is not one."""
     from torch.autograd import DeviceType
 
     return [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.key not in ranges]
+            if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
 
 
 def summarize_profile(prof, window_ms: float, n_steps: int, what: str, ranges=()) -> str:
@@ -635,7 +635,7 @@ def summarize_profile(prof, window_ms: float, n_steps: int, what: str, ranges=()
     import torch
     from torch.autograd import DeviceType
 
-    dev = device_events(prof, ranges)
+    dev = device_events(prof)
     busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
     in_ranges = []
     for name in ranges:
@@ -850,7 +850,7 @@ def full_system_phase(dev, cfg):
                 "point_clouds/gs.ply", "colmap/images.bin", "onthefly.txt"):
         check(os.path.isfile(os.path.join(out_dir, rel)), f"save wrote no {rel}")
     frame_ms = [1e3 * x for x in sys_.frame_s]
-    rt = sys_.runtimes.summary()
+    rt = sys_.runtimes_ms()
     print(f"phase 8 full system: {SYS_FRAMES} frames {SYS_W}x{SYS_H} overlapped (oracle "
           f"registered in {reg_s:.1f} s); lost {fe.lost_number}; keyframes {n_kf} at frames "
           f"{kf_frames}; GN solves {len(fg.solves)} at (P, E, edges) {fg.solves}; kept pairs "
@@ -889,12 +889,10 @@ def full_system_phase(dev, cfg):
     seq.backend.sync_timing = True
     it = _UploadAhead(_Prefetcher(seq_ds), seq_ds.transform, dev, runner=seq.frontend.runner)
 
-    import contextlib
-
     t0 = time.time()
     try:
         with ProfiledFrames(*SYS_PROFILED) as window:
-            seq._stream_loop(it, None, None, lambda name: contextlib.nullcontext())
+            seq._stream_loop(it, None, None)
     finally:
         it.close()
     torch.cuda.synchronize()
