@@ -46,6 +46,10 @@ SIGNATURES = {
     # the same over f32 descriptors
     "artdeco_refine_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float,
                            _P, _P, _P),
+    # rays, pts, p_init, b, n, h, w, blocks, lambda_init, cost_thresh,
+    # early_exit_frac, head, max_iter, p_out, conv, lam, counts, stream
+    "artdeco_iter_proj": (_P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, ctypes.c_float,
+                          ctypes.c_float, _I, _I, _P, _P, _P, _P, _P),
     # info (7 ints; launch_info.cuh)
     "artdeco_composite_fwd_info": (_P,),
     # radius, info

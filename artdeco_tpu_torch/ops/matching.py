@@ -5,7 +5,9 @@ Port of ``artdeco_tpu/ops/matching.py``:
 * ``img_gradient`` / ``prep_for_iter_proj``: Scharr-like gradients of the
   ray image, normalised target points, initial projections.
 * ``iter_proj``: per-pixel 2-DoF Levenberg-Marquardt with bilinear ray
-  interpolation, vectorised over every pixel.
+  interpolation: K4 (``csrc/iter_proj.cu``) on the card, two launches a
+  batch; ``iter_proj_plain``, vectorised over every pixel of a row, on the
+  CPU.
 * ``refine_matches``: the dilated window argmax, through K3
   (``ops/refine_dense.py``).
 * ``match_iterative_proj`` / ``match`` / ``match_pi3``: the cascade.
@@ -14,23 +16,25 @@ The reference's clamping and acceptance rules are kept as the JAX package
 has them: they decide which matches exist.
 
 ``iter_proj``'s data-dependent exit: the JAX package runs four head
-iterations, then the remaining ones for every pixel only when more than
-0.2 % of the pixels are still unconverged (the CUDA original exits per
-pixel).  The port reproduces that rule with one host sync on the
-unconverged share per call: the tail it skips costs more device time
-than the sync, and the result is the JAX package's.
+iterations, then the remaining ones for every pixel of a row only when
+more than 0.2 % of its pixels are still unconverged (the CUDA original
+exits per pixel).  Both paths apply that rule, ``tail_runs``, per row: the
+plain path with one host read of the converged count a row, K4 on the
+device from its head's per-block counts.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
-from artdeco_tpu_torch import trace
+from artdeco_tpu_torch import kernels, trace
 from artdeco_tpu_torch.ops.refine_dense import refine_matches_dense_single
 
 EARLY_EXIT_FRAC = 0.002      # iter_proj's tail runs above this unconverged share
 HEAD_ITERS = 4
+_K4_THREADS = 256            # pixels a block of K4 (csrc/iter_proj.cu THREADS)
 
 
 # ---------------------------------------------------------------------------
@@ -90,8 +94,17 @@ def prep_for_iter_proj(X11, X21, idx_1_to_2_init):
 
 
 # ---------------------------------------------------------------------------
-# iter_proj: vectorised per-pixel 2-DoF LM
+# iter_proj: per-pixel 2-DoF LM
 # ---------------------------------------------------------------------------
+
+def tail_runs(n_conv: int, n: int) -> bool:
+    """iter_proj's tail rule: the iterations after the head run for a row
+    whose unconverged share ``1 - n_conv / n``, in float32 as the JAX
+    package's ``1 - mean(conv)``, exceeds ``EARLY_EXIT_FRAC``.  K4's tail
+    kernel computes the same in float32 on the device."""
+    one, frac = np.float32(1.0), np.float32(EARLY_EXIT_FRAC)
+    return bool(one - np.float32(n_conv) / np.float32(n) > frac)
+
 
 def _pack_corners(img_flat, w: int):
     """(h*w, c) -> (h*w, 4c) rows [img[i], img[i+1], img[i+w], img[i+w+1]]:
@@ -166,22 +179,78 @@ def _iter_proj_single(rays_img, pts3d_norm, p_init, max_iter: int, lambda_init: 
     head = min(HEAD_ITERS, max_iter)
     for _ in range(head):
         carry = body(carry)
-    if max_iter > head:
-        unconv = 1.0 - carry[3].float().mean()
-        if bool(unconv > EARLY_EXIT_FRAC):      # one host sync per call
-            for _ in range(head, max_iter):
-                carry = body(carry)
+    # one host read a row
+    if max_iter > head and tail_runs(int(carry[3].sum()), carry[3].numel()):
+        for _ in range(head, max_iter):
+            carry = body(carry)
     return torch.stack([carry[0], carry[1]], dim=-1), carry[3]
+
+
+def iter_proj_plain(rays_with_grad_img, pts3d_norm, p_init, max_iter: int = 10,
+                    lambda_init: float = 1e-8, cost_thresh: float = 1e-8):
+    """Plain PyTorch K4: ``iter_proj`` one batch row at a time."""
+    outs = [_iter_proj_single(r, p, q, max_iter, lambda_init, cost_thresh)
+            for r, p, q in zip(rays_with_grad_img, pts3d_norm, p_init)]
+    return torch.stack([o[0] for o in outs]), torch.stack([o[1] for o in outs])
+
+
+def _check_iter_proj(rays, pts, p_init):
+    if rays.dim() != 4 or rays.shape[-1] != 9 or pts.dim() != 3 or pts.shape[-1] != 3 \
+            or p_init.shape != (*pts.shape[:2], 2) or pts.shape[0] != rays.shape[0]:
+        raise ValueError(f"iter_proj: bad shapes rays {tuple(rays.shape)} pts "
+                         f"{tuple(pts.shape)} p_init {tuple(p_init.shape)}")
+    for name, a in (("rays", rays), ("pts", pts), ("p_init", p_init)):
+        if a.dtype != torch.float32:
+            raise ValueError(f"iter_proj: {name} must be float32, got {a.dtype}")
+        if a.device != rays.device:
+            raise ValueError(f"iter_proj: {name} is on {a.device}, rays on {rays.device}")
 
 
 def iter_proj(rays_with_grad_img, pts3d_norm, p_init, max_iter: int = 10,
               lambda_init: float = 1e-8, cost_thresh: float = 1e-8):
     """Project unit rays of frame 2 onto frame 1's ray image via per-pixel
-    LM.  Inputs (b, h, w, 9), (b, n, 3), (b, n, 2); returns (p_new float
-    (b, n, 2), converged bool (b, n)).  Each batch row runs on its own."""
-    outs = [_iter_proj_single(r, p, q, max_iter, lambda_init, cost_thresh)
-            for r, p, q in zip(rays_with_grad_img, pts3d_norm, p_init)]
-    return torch.stack([o[0] for o in outs]), torch.stack([o[1] for o in outs])
+    LM.  Inputs (b, h, w, 9), (b, n, 3), (b, n, 2) float32; returns (p_new
+    float (b, n, 2), converged bool (b, n)).  Each batch row runs on its own
+    and takes its own tail (``tail_runs``).
+
+    For CUDA tensors K4 (``csrc/iter_proj.cu``): the head and the tail
+    launch once each over the whole batch (counted in
+    ``iter_proj.launches``; the tail only where ``max_iter`` exceeds the
+    head), the rows in the tracer's ``iter_proj.rows``, with no host read.
+    For CPU tensors ``iter_proj_plain``."""
+    _check_iter_proj(rays_with_grad_img, pts3d_norm, p_init)
+    dev = rays_with_grad_img.device
+    if dev.type == "cpu":
+        return iter_proj_plain(rays_with_grad_img, pts3d_norm, p_init, max_iter, lambda_init,
+                               cost_thresh)
+    if dev.type != "cuda":
+        raise ValueError(f"iter_proj: unsupported device {dev}")
+    b, h, w, _ = rays_with_grad_img.shape
+    n = pts3d_norm.shape[1]
+    head = max(0, min(HEAD_ITERS, max_iter))
+    blocks = -(-n // _K4_THREADS)
+    p_out = torch.empty((b, n, 2), dtype=torch.float32, device=dev)
+    conv = torch.empty((b, n), dtype=torch.bool, device=dev)
+    lam = torch.empty((b, n), dtype=torch.float32, device=dev)
+    counts = torch.empty((b, blocks), dtype=torch.int32, device=dev)
+    rays, pts, p0 = (a.contiguous() for a in (rays_with_grad_img, pts3d_norm, p_init))
+    # the launch runs on the host thread's current device: make it the data's
+    with torch.cuda.device(dev):
+        err = kernels.load().artdeco_iter_proj(
+            rays.data_ptr(), pts.data_ptr(), p0.data_ptr(), b, n, h, w, blocks, lambda_init,
+            cost_thresh, EARLY_EXIT_FRAC, head, max_iter, p_out.data_ptr(), conv.data_ptr(),
+            lam.data_ptr(), counts.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    kernels.check(err, "iter_proj")
+    if b and n:
+        kernels.count_launch(_iter_proj)
+        if max_iter > head:
+            kernels.count_launch(_iter_proj)
+    trace.count("iter_proj.rows", b)
+    return p_out, conv
+
+
+iter_proj.launches = 0
+_iter_proj = iter_proj      # counts survive a wrapper put in the module's name
 
 
 # ---------------------------------------------------------------------------

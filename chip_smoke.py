@@ -46,9 +46,13 @@ benchmark ``python -m artdeco_tpu_torch.bench`` and the four profilers).
    plain version on a small random case and at the stream's shape
    (384x512, 24 channels, radius 4, dilation 5, the oracle's descriptors
    and the matcher's own initial positions and validity), positions and
-   scores bitwise equal; times both and prints K3's bound.
+   scores bitwise equal; times both and prints K3's bound.  K4
+   (``iter_proj``) against ``iter_proj_plain`` at the stream's shape, frame
+   0's points matched into frame 1 (b = 1) and into frames 1-8 (b = 8):
+   positions and flags bitwise equal; times both and prints K4's bound.
 7. the tracking slice: 120 frames, 4.1 px of motion each; K3's launches
-   must equal the matches made, no frame may be lost, at least two
+   and K4's rows must equal the matches made, K4's launches two a match
+   (one where ``max_iter`` is the head's), no frame may be lost, at least two
    keyframes, ATE RMSE < 0.03 m against ground truth; prints ms per
    tracked frame, the split between matching and ``track_step``, and a
    profile of a few tracked frames.
@@ -62,7 +66,8 @@ benchmark ``python -m artdeco_tpu_torch.bench`` and the four profilers).
    binds each image to its frame), one
    rigid transform of the scene per SLAM keyframe after frame 0, K1/K2/K3
    launches equal to the calls that launch them (K3: tracked matches +
-   the backend's symmetric-match rows + its pair matches), ATE RMSE < 0.03
+   the backend's symmetric-match rows + its pair matches), K4's rows equal
+   to K3's, in one or two launches a cascade call, ATE RMSE < 0.03
    m, finite test PSNR.  Prints ms per frame and FPS, the stage split,
    peak memory, then runs the stream's first 76 frames sequentially with
    device-synchronised backend timers (its keyframes phase 8's), the ms
@@ -320,6 +325,14 @@ FLOP_K1 = 1 + 14 + 2
 FLOP_K2_A = 14 + 1 + 2 + 2
 FLOP_K2_B = 14 + 1 + 2 + 1 + 5 + 1 + 17 + 7 + 2 + 13
 K3_WINDOW = 5 * 9 * 9         # window positions: dilations 5..1, 9x9 each
+# K4, counted from csrc/iter_proj.cu: one bilinear sample and its cost
+# (fraction 2, lin 2, weights 6, 9 channels x 7, norm 6, error 6, cost 5),
+# one LM step beside its sample (normal equations 27, solve 12, update 3);
+# per pixel its ray-image pixel, point and start read, position and flag
+# written
+K4_SAMPLE_FLOPS = 2 + 2 + 6 + 63 + 6 + 6 + 5
+K4_STEP_FLOPS = 27 + 12 + 3
+K4_BYTES = 36 + 12 + 8 + 8 + 1
 
 
 def check(ok: bool, what: str) -> None:
@@ -674,6 +687,57 @@ def k3_stream_inputs(runner, h: int, w: int, mcfg: dict) -> tuple:
             runner._dev(0)[1].to(torch.bfloat16), p1[0].contiguous(), valid[0])
 
 
+def k4_stream_inputs(runner, h: int, w: int, b: int) -> tuple:
+    """``iter_proj``'s inputs for frame 0's points matched into frames
+    1..b of ``runner`` (an ``OracleRunner`` with them registered), from the
+    identity start: (rays (b, h, w, 9), points (b, h*w, 3), starts)."""
+    import torch
+    from artdeco_tpu_torch.ops import matching as M
+
+    X11 = torch.stack([runner._dev(k)[0] for k in range(1, b + 1)]).reshape(b, h, w, 3)
+    X21 = torch.stack([runner._cross_dev(0, k) for k in range(1, b + 1)]).reshape(b, h, w, 3)
+    return M.prep_for_iter_proj(X11, X21, None)
+
+
+def k4_golden(rays, pts, p_init, mcfg: dict, timed: bool) -> dict:
+    """K4 against ``iter_proj_plain``: positions and flags bitwise equal.
+    Returns the rows, the rows whose tail ran, the bound (ms, by) of the
+    work these inputs need and, if timed, both times (CUDA events, median
+    of 20; the plain version's includes its host reads)."""
+    import torch
+    from artdeco_tpu_torch.ops import matching as M
+
+    lm = dict(max_iter=int(mcfg["max_iter"]), lambda_init=float(mcfg["lambda_init"]),
+              cost_thresh=float(mcfg["convergence_thresh"]))
+    pk, ck = M.iter_proj(rays, pts, p_init, **lm)
+    pp, cp = M.iter_proj_plain(rays, pts, p_init, **lm)
+    head = min(M.HEAD_ITERS, lm["max_iter"])
+    _, c_head = M.iter_proj(rays, pts, p_init, **{**lm, "max_iter": head})
+    torch.cuda.synchronize()
+    same = 1.0 - (pk != pp).any(-1).float().mean().item()
+    check(torch.equal(pk.view(torch.int32), pp.view(torch.int32)),
+          f"K4 positions bitwise equal on {same:.6f} of the pixels, not all")
+    check(torch.equal(ck, cp), "K4 converged flags differ from the plain version's")
+    b, n = pts.shape[:2]
+    tails = (sum(M.tail_runs(c, n) for c in c_head.sum(-1).tolist())
+             if lm["max_iter"] > head else 0)
+    step = K4_SAMPLE_FLOPS + K4_STEP_FLOPS
+    flops = n * (b * (K4_SAMPLE_FLOPS + head * step)
+                 + tails * (K4_SAMPLE_FLOPS + (lm["max_iter"] - head) * step))
+    res = dict(b=b, tails=tails, bound=bound(flops, K4_BYTES * b * n))
+    if timed:
+        res.update(ms=cuda_ms(lambda: M.iter_proj(rays, pts, p_init, **lm)),
+                   plain_ms=cuda_ms(lambda: M.iter_proj_plain(rays, pts, p_init, **lm)))
+    return res
+
+
+def k4_line(k4: dict) -> str:
+    """One ``k4_golden`` result: rows, tails, time beside bound."""
+    (b_ms, by), ms = k4["bound"], k4["ms"]
+    return (f"b={k4['b']} ({k4['tails']} tails) K4 {ms:.4f} ms (bound {b_ms:.4f} ms by {by}, "
+            f"{b_ms / ms:.1%} of it; plain {k4['plain_ms']:.3f} ms)")
+
+
 def k3_golden(D11b, D21b, p, valid, timed: bool):
     """K3 against its plain version: positions and scores bitwise equal on
     every query (both add the exact bf16 products in channel order, K3 with
@@ -742,26 +806,40 @@ def timers_ms(timers: dict, prefix: str) -> str:
                      if k.startswith(prefix)) or "none"
 
 
+_K4_ROWS_AT_RESET = [0]       # the tracer's iter_proj.rows at reset_launches
+
+
 def reset_launches():
+    from artdeco_tpu_torch import trace
+    from artdeco_tpu_torch.ops import matching as M
     from artdeco_tpu_torch.ops import refine_dense as RD
     from artdeco_tpu_torch.ops.splat import composite as C
 
     C.composite_fwd.launches = C.composite_bwd.launches = RD.window_argmax.launches = 0
-    RD.window_argmax.launches_f32 = 0
+    RD.window_argmax.launches_f32 = M.iter_proj.launches = 0
+    _K4_ROWS_AT_RESET[0] = trace.counters().get("iter_proj.rows", 0)
 
 
 def read_launches() -> dict:
+    """The kernels' launches since ``reset_launches``, and the rows K4 ran
+    (``k4_rows``, the tracer's ``iter_proj.rows``)."""
+    from artdeco_tpu_torch import trace
+    from artdeco_tpu_torch.ops import matching as M
     from artdeco_tpu_torch.ops import refine_dense as RD
     from artdeco_tpu_torch.ops.splat import composite as C
 
     return {"fwd": C.composite_fwd.launches, "bwd": C.composite_bwd.launches,
-            "k3": RD.window_argmax.launches, "k3_f32": RD.window_argmax.launches_f32}
+            "k3": RD.window_argmax.launches, "k3_f32": RD.window_argmax.launches_f32,
+            "k4": M.iter_proj.launches,
+            "k4_rows": trace.counters().get("iter_proj.rows", 0) - _K4_ROWS_AT_RESET[0]}
 
 
 def check_system_launches(sys_, launches: dict, what: str) -> str:
-    """A System run's K1/K2/K3 launches against the calls that launch them:
+    """A System run's K1-K4 launches against the calls that launch them:
     K1 = training steps + renders, K2 = steps, K3 = tracked matches + the
-    backend's symmetric-match rows + its pair matches; with a mesh of n
+    backend's symmetric-match rows + its pair matches, K4's rows = K3's
+    (every cascade row runs ``iter_proj`` then refine) in at least one
+    launch a cascade call and at most two a row; with a mesh of n
     slots, a dp step launches K1 and K2 n times each and a sharded render
     K1 n times; a web viewer attached to the run adds its renders to K1.
     Returns the line that says so."""
@@ -770,6 +848,10 @@ def check_system_launches(sys_, launches: dict, what: str) -> str:
     k3_want = tracked + fg.match_rows + bk.pair_matches
     check(launches["k3"] == k3_want, f"{what}: K3 launches {launches['k3']} != {tracked} "
           f"tracked + {fg.match_rows} symmetric rows + {bk.pair_matches} pair matches")
+    check(launches["k4_rows"] == k3_want, f"{what}: K4 ran {launches['k4_rows']} rows, the "
+          f"cascade {k3_want}")
+    check(0 < launches["k4"] <= 2 * k3_want, f"{what}: K4 launches {launches['k4']} for "
+          f"{k3_want} rows")
     n = sm._mesh.size if sm._mesh is not None else 0
     steps = sm.n_train_steps + n * sm.n_dp_steps
     viewed = sys_.viewer.renders if sys_.viewer is not None else 0
@@ -786,7 +868,7 @@ def check_system_launches(sys_, launches: dict, what: str) -> str:
     return (f"launches K1 {launches['fwd']} (= {sm.n_train_steps} steps{mesh[0]} + "
             f"{sm.n_renders} renders{mesh[1]}) K2 {launches['bwd']} K3 {launches['k3']} (= "
             f"{tracked} tracked + {fg.match_rows} symmetric rows + {bk.pair_matches} pair "
-            f"matches)")
+            f"matches) K4 {launches['k4']} over its {launches['k4_rows']} rows")
 
 
 def tracked_poses(frontend) -> list:
@@ -1227,7 +1309,7 @@ def model_system_phase(dev) -> tuple:
         D.load_dataset = load
     check(not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32,
           "the entry point left TF32 on")
-    for k in ("fwd", "bwd", "k3"):
+    for k in ("fwd", "bwd", "k3", "k4"):
         check(launches[k] > 0, f"the model-driven System launched no {k}")
     metrics = meta["metrics"]
     check(all(np.isfinite(v) for v in metrics.values()), f"metrics {metrics}")
@@ -3320,7 +3402,7 @@ def main() -> int:
         from artdeco_tpu_torch.runtime.system import MapperStage, exact_mapper_messages
         from artdeco_tpu_torch.eval.trajectory import evaluate_trajectory
         from artdeco_tpu_torch.models.oracle import OracleRunner
-        from artdeco_tpu_torch.ops import refine_dense as RD
+        from artdeco_tpu_torch.ops import matching as M
         from artdeco_tpu_torch.utils.config import load_config
         from artdeco_tpu_torch.vslam.frontend import Frontend
         from artdeco_tpu_torch.vslam.keyframes import KeyframeStore
@@ -3505,6 +3587,9 @@ def main() -> int:
           f"{k3['same']:.6f}, max score err {k3['err']:.3g}, K3 {k3['ms']:.4f} ms "
           f"(bound {k3_bound:.4f} ms by {k3_by}, {k3_bound / k3['ms']:.1%} of it; plain "
           f"{k3['plain_ms']:.3f} ms)", flush=True)
+    k4 = [k4_golden(*k4_stream_inputs(runner, h, w, b), mcfg, timed=True) for b in (1, 8)]
+    print(f"phase 6 K4 goldens at {h}x{w}, frame 0 into frames 1..b, positions and flags "
+          f"bitwise equal: {'; '.join(k4_line(r) for r in k4)}", flush=True)
 
     # -- 7. the tracking slice -------------------------------------------------
     store = KeyframeStore(h, w, tds.K_slam, buffer=64, device=dev)
@@ -3512,26 +3597,34 @@ def main() -> int:
     fe.tracker.sync_timing = True       # the match/step split below is device time
     frames = [tds[i] for i in range(len(tds))]
     torch.cuda.synchronize()
-    RD.window_argmax.launches = 0
+    reset_launches()
     frame_ms = []
     for img, info in frames:
         t0 = time.perf_counter()
         fe.process_frame(img, info)
         torch.cuda.synchronize()
         frame_ms.append(1e3 * (time.perf_counter() - t0))
-    k3_launches = RD.window_argmax.launches
+    trk_launches = read_launches()
+    k3_launches, k4_launches = trk_launches["k3"], trk_launches["k4"]
     n_kf = len(store)
     est, gt = fe.estimated_trajectory(), np.asarray(fe.frames_Twc_gt)
     ate = evaluate_trajectory("", "unused.json", est, gt, max_dt=0.05)["APE"]["rmse"]
     check(k3_launches == len(frames) - 1, f"K3 launches {k3_launches} != "
           f"{len(frames) - 1} matches")
+    # one b = 1 cascade a tracked frame: K4's head, and its tail launch
+    # where max_iter exceeds the head
+    k4_per = 2 if int(runner.match_cfg["max_iter"]) > M.HEAD_ITERS else 1
+    check(trk_launches["k4_rows"] == len(frames) - 1,
+          f"K4 ran {trk_launches['k4_rows']} rows for {len(frames) - 1} matches")
+    check(k4_launches == k4_per * (len(frames) - 1),
+          f"K4 launches {k4_launches} != {k4_per} x {len(frames) - 1} matches")
     check(fe.lost_number == 0, f"{fe.lost_number} frames lost")
     check(n_kf >= 2, f"{n_kf} keyframes")
     check(ate < 0.03, f"ATE RMSE {ate} m")
     check(runner.d2h_lookups == 0, f"{runner.d2h_lookups} frame lookups pulled an image")
     tm = {k: 1e3 * v[0] / max(v[1], 1) for k, v in fe.tracker.timers.items()}
     print(f"phase 7 tracking slice: {len(frames)} frames {w}x{h} (oracle registered in "
-          f"{reg_s:.1f} s); K3 launches {k3_launches}; lost {fe.lost_number}; keyframes "
+          f"{reg_s:.1f} s); K3 launches {k3_launches}; K4 launches {k4_launches}; lost {fe.lost_number}; keyframes "
           f"{n_kf} at frames {store.dataset_idx[:n_kf].tolist()}; ATE RMSE {ate:.5f} m over "
           f"{len(est)} frames; {statistics.median(frame_ms[1:]):.2f} ms per tracked frame "
           f"(median; mean {statistics.mean(frame_ms[1:]):.2f}); match {tm['trk.match']:.2f} ms, "
@@ -3549,7 +3642,7 @@ def main() -> int:
 
     # -- 8. the full system ------------------------------------------------
     sys_launches, sys_ref = full_system_phase(dev, tcfg)
-    for name in ("fwd", "bwd", "k3"):
+    for name in ("fwd", "bwd", "k3", "k4"):
         check(sys_launches[name] > 0, f"the full system launched no {name}")
 
     # -- 9. the solvers and relocalization -------------------------------------
@@ -3581,7 +3674,7 @@ def main() -> int:
 
     # -- 15. the tools ---------------------------------------------------------------------
     tools_launches = tools_phase()
-    for name in ("fwd", "bwd", "k3"):
+    for name in ("fwd", "bwd", "k3", "k4"):
         check(tools_launches[name] > 0, f"phase 15c's run launched no {name}")
 
     # -- 16. the measurement tools ------------------------------------------------------
@@ -3597,11 +3690,13 @@ def main() -> int:
                 "bwd": {"phase 3": launches["bwd"], "phase 8": sys_launches["bwd"],
                         "phase 10": model_launches["bwd"]},
                 "k3": {"phase 7": k3_launches, "phase 8": sys_launches["k3"],
-                       "phase 10": model_launches["k3"]}}
+                       "phase 10": model_launches["k3"]},
+                "k4": {"phase 7": k4_launches, "phase 8": sys_launches["k4"],
+                       "phase 10": model_launches["k4"]}}
     for part, counts in (*disk_launches.items(), ("phase 13d", mesh_launches),
                          *view_launches.items(), ("phase 15c", tools_launches),
                          ("phase 16b", bench_launches)):
-        for k in ("fwd", "bwd", "k3"):
+        for k in ("fwd", "bwd", "k3", "k4"):
             if k in counts:
                 by_phase[k][part] = counts[k]
     src = "artdeco_tpu_torch/csrc/composite.cu"
@@ -3632,6 +3727,13 @@ def main() -> int:
          "max_abs_err": k3f["err"],
          "ms": k3f["ms"], "plain_ms": k3f["plain_ms"],
          "bound_ms": k3f["bound"], "bound_by": k3f["by"], "library_ms": None},
+        {"name": "iter_proj", "route": "cuda", "source": "artdeco_tpu_torch/csrc/iter_proj.cu",
+         "replaces": "artdeco_tpu/ops/matching.py:186",
+         "launches": sys_launches["k4"], "launches_by_phase": by_phase["k4"],
+         "max_abs_err": 0.0, "b": k4[0]["b"], "tails": k4[0]["tails"],
+         "ms": k4[0]["ms"], "plain_ms": k4[0]["plain_ms"],
+         "bound_ms": k4[0]["bound"][0], "bound_by": k4[0]["bound"][1], "library_ms": None,
+         "b8": {k: k4[1][k] for k in ("b", "tails", "ms", "plain_ms", "bound")}},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

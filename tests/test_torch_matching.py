@@ -40,36 +40,13 @@ import torch
 from artdeco_tpu.ops import matching as jm
 from artdeco_tpu.ops.refine_dense import refine_matches_dense_single
 from artdeco_tpu.ops.refine_pallas import dense_best_pallas
-from artdeco_tpu_torch.models.oracle import OracleRunner
 from artdeco_tpu_torch.ops import matching as M
 from artdeco_tpu_torch.ops import refine_dense as RD
+from matching_cases import MATCH_CFG, oracle_pair
 from torch_parity import n, t, torch_threads  # noqa: F401
 
 jrefine = jax.jit(refine_matches_dense_single,
                   static_argnames=("radius", "dilation_max", "interpret"))
-MATCH_CFG = dict(max_iter=10, lambda_init=1e-8, convergence_thresh=1e-6, dist_thresh=0.1,
-                 radius=4, dilation_max=5)
-
-
-def oracle_pair(h=48, w=64, shift=3):
-    """(X11, X21, D11, D21) of two frames of the oracle's plane scene
-    ``shift`` stream frames apart (0.02 m each), from the oracle's numpy
-    geometry: X21 is frame 2's points in frame 1's camera.  (The port's
-    copy, which tests/test_torch_frontend.py holds to the JAX package's:
-    this file imports no JAX model code, so its ``cuda`` test also runs
-    where flax is not installed.)"""
-    K = np.asarray([[0.8 * w, 0, (w - 1) / 2], [0, 0.8 * w, (h - 1) / 2], [0, 0, 1]],
-                   np.float32)
-    r = OracleRunner((h, w), K, MATCH_CFG, device="cpu")
-    for i in (0, shift):
-        T = np.asarray([0.02 * i, 0, 0, 0, 0, 0, 1, 1], np.float32)
-        r._poses[i] = T
-    X11 = r._pointmap(0).reshape(1, h, w, 3)
-    # frame `shift`'s world points in frame 0's camera (pose 0 is identity)
-    X21 = r._np_sim3_act(r._poses[shift], r._pointmap(shift)).reshape(1, h, w, 3)
-    D11 = r._desc(0).reshape(1, h, w, -1)
-    D21 = r._desc(shift).reshape(1, h, w, -1)
-    return X11, X21, D11, D21
 
 
 def test_img_gradient_and_prep_match_jax():
