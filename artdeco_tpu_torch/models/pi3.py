@@ -7,7 +7,9 @@ tokens, qk-norm, LayerScale 0.01), and three transformer heads: local
 points (xy*z, exp z), confidence, and a per-frame pose whose 9-D rotation
 is orthogonalised by an SVD; world points by unprojection.  The
 accurate-loop-closure path runs it jointly over <= 24 keyframes at
-392x518 (``vslam/accurate_lc.py``).
+392x518 (``vslam/accurate_lc.py``) through a ``Pi3Runner``, whose
+``timers`` take the forward's spans: ``pi3.encode``, ``pi3.decode`` (a
+``pi3.global`` in it for each global block) and ``pi3.heads``.
 
 The modules carry the released checkpoint's names (``encoder.blocks.{i}``,
 ``decoder.{i}.attn.q_norm``, ``point_decoder.projects``,
@@ -44,6 +46,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from artdeco_tpu_torch import trace
 from artdeco_tpu_torch.device import resolve
 from artdeco_tpu_torch.models.mast3r import attention, layer_norm, rope2d
 
@@ -331,20 +334,36 @@ class Pi3(nn.Module):
             h.projects.to(dt)
         return self
 
-    def forward(self, imgs):
+    def forward(self, imgs, timers: trace.Timers = None):
         """imgs (B, N, 3, H, W) in [0, 1] -> dict(points, local_points,
-        conf, camera_poses)."""
-        c = self.cfg
-        imgs = (imgs.float() - self.mean) / self.std
+        conf, camera_poses).  Spans ``pi3.encode``, ``pi3.decode`` (a
+        ``pi3.global`` in it for each global block) and ``pi3.heads``
+        through ``timers``; with their ``sync_timing``, each holds only its
+        own device work."""
+        t = timers if timers is not None else trace.Timers()
+        dev = imgs.device
         B, N, _, H, W = imgs.shape
-        p = c.patch_size
-        nh, nw = H // p, W // p
-        hidden = self.encoder(imgs.reshape(B * N, 3, H, W))
-        r = c.dec_registers
-        reg = self.register_token.expand(B, N, r, -1).reshape(B * N, r, -1)
+        p = self.cfg.patch_size
+        with t.device_span("pi3.encode", dev):
+            imgs = (imgs.float() - self.mean) / self.std
+            hidden = self.encoder(imgs.reshape(B * N, 3, H, W))
+        with t.device_span("pi3.decode", dev):
+            hidden, pos = self.decode(hidden, B, N, H // p, W // p, t)
+        with t.device_span("pi3.heads", dev):
+            return self.heads(hidden, pos, B, N, H, W)
+
+    def decode(self, hidden, B: int, N: int, nh: int, nw: int, timers: trace.Timers):
+        """(B*N, nh*nw, C) patch tokens -> the last two blocks' outputs
+        concatenated, (B*N, r + nh*nw, 2C), and their (y, x) positions, with
+        the r register tokens (as many as ``register_token`` holds) first.
+        The even blocks attend within each frame, the odd ones across the N
+        frames of a batch."""
+        c = self.cfg
+        dev = hidden.device
+        r = self.register_token.shape[2]
+        reg = self.register_token.expand(B, N, r, -1).reshape(B * N, r, hidden.shape[-1])
         hidden = torch.cat([reg, hidden], dim=1)
         hw = hidden.shape[1]
-        dev = imgs.device
         ys, xs = torch.meshgrid(torch.arange(nh, device=dev) + 1,
                                 torch.arange(nw, device=dev) + 1, indexing="ij")
         pos = torch.cat([torch.zeros(r, 2, dtype=torch.int64, device=dev),
@@ -357,14 +376,25 @@ class Pi3(nn.Module):
             if i % 2 == 0:       # within each frame
                 x = blk(x.reshape(B * N, hw, -1), pos)
             else:                # across all frames
-                x = blk(x.reshape(B, N * hw, -1), pos.reshape(B, N * hw, 2))
+                with timers.device_span("pi3.global", dev):
+                    x = blk(x.reshape(B, N * hw, -1), pos.reshape(B, N * hw, 2))
             x = x.reshape(B * N, hw, -1)
             if i + 1 in (c.dec_depth - 1, c.dec_depth):
                 outputs.append(x)
-        hidden2 = torch.cat(outputs, dim=-1)
-        point_h = self.point_decoder(hidden2, pos)
-        conf_h = self.conf_decoder(hidden2, pos)
-        cam_h = self.camera_decoder(hidden2, pos)
+        return torch.cat(outputs, dim=-1), pos
+
+    def heads(self, hidden, pos, B: int, N: int, H: int, W: int) -> dict:
+        """The point, confidence and camera heads over ``decode``'s output
+        (its first ``cfg.dec_registers`` tokens are registers), the camera
+        rotations orthogonalised and the local points unprojected."""
+        c = self.cfg
+        p = c.patch_size
+        nh, nw = H // p, W // p
+        r = c.dec_registers
+        dev = hidden.device
+        point_h = self.point_decoder(hidden, pos)
+        conf_h = self.conf_decoder(hidden, pos)
+        cam_h = self.camera_decoder(hidden, pos)
 
         def pts_head(h, head):
             y = head.proj(h[:, r:])
@@ -387,6 +417,21 @@ class Pi3(nn.Module):
         points = torch.einsum("bnij,bnhwj->bnhwi", Rp, local_points) + tp[:, :, None, None, :]
         return dict(points=points, local_points=local_points, conf=conf,
                     camera_poses=camera_poses)
+
+
+class Pi3Runner(trace.Timed):
+    """Pi3 on its device as the accurate loop closure calls it:
+    ``runner(imgs (1, N, 3, H, W) in [0, 1]) -> dict``, without autograd.
+    The forward's spans go through ``timers``."""
+
+    def __init__(self, model: Pi3):
+        self.model = model
+        self.device = model.mean.device
+        self.timers = trace.Timers()
+
+    @torch.no_grad()
+    def __call__(self, imgs):
+        return self.model(torch.as_tensor(imgs, device=self.device), self.timers)
 
 
 # ---------------------------------------------------------------------------
@@ -512,11 +557,11 @@ def read_state_dict(path: str) -> dict:
 
 def load_pi3_apply(checkpoint_path: str = "", full: bool = True, state_dict: dict = None,
                    seed: int = 0, *, device=None, generator: torch.Generator = None):
-    """``(apply, resize_hw)``: ``apply(imgs (1, N, 3, H, W) in [0, 1]) ->
-    dict`` of the Pi3 forward on ``device``, and the joint-inference
-    resolution (392x518 at full size).  Weights from ``state_dict``, else
-    from ``checkpoint_path`` when the file exists, else random (tiny config
-    unless ``full``) with a warning, as in the JAX package."""
+    """``(runner, resize_hw)``: a ``Pi3Runner`` of the Pi3 forward on
+    ``device``, and the joint-inference resolution (392x518 at full size).
+    Weights from ``state_dict``, else from ``checkpoint_path`` when the
+    file exists, else random (tiny config unless ``full``) with a warning,
+    as in the JAX package."""
     device = resolve(device)
     cfg = Pi3Config() if full else tiny_pi3_config()
     resize_hw = (392, 518) if full else (112, 140)
@@ -531,11 +576,4 @@ def load_pi3_apply(checkpoint_path: str = "", full: bool = True, state_dict: dic
         model = random_pi3(cfg, generator, device)
         print("WARNING: no Pi3 checkpoint; accurate loop closure runs with "
               "random weights (verification will be meaningless)")
-    model = model.to(device).eval()
-
-    @torch.no_grad()
-    def apply(imgs):
-        return model(torch.as_tensor(imgs, device=device))
-
-    apply.model = model
-    return apply, resize_hw
+    return Pi3Runner(model.to(device).eval()), resize_hw

@@ -260,6 +260,14 @@ class Timers(dict):
                 else None)
         return span(name, self, sync, request)
 
+    def device_span(self, name: str, device: torch.device) -> span:
+        """``span`` for a stage timed by its device work: with ``sync_timing``
+        set, the device is synchronised at the start too, so that work
+        launched before the stage does not count in it."""
+        if self.sync_timing and device is not None and device.type == "cuda":
+            torch.cuda.synchronize(device)
+        return self.span(name, device)
+
 
 class Timed:
     """A component with per-instance ``timers``: its ``sync_timing`` is

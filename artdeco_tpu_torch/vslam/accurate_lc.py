@@ -20,6 +20,7 @@ from typing import Callable
 
 import torch
 
+from artdeco_tpu_torch import trace
 from artdeco_tpu_torch.dataio.resample import area_matrix
 from artdeco_tpu_torch.ops.matching import match_pi3
 
@@ -45,28 +46,41 @@ def make_pi3_accurate_matcher(
 ):
     """Returns ``matcher(candidate_ids, query_id) -> match fractions``, the
     retrieval database's accurate matcher.  Its ``calls`` attribute counts
-    its Pi3 runs."""
+    its Pi3 runs, ``pi3`` is ``pi3_apply``.
+
+    A call numbers a request of ``matcher.stream`` where none is open, and
+    counts its frames, padding included, in the tracer's ``pi3.frames``;
+    the candidates' ``match_pi3`` is its span ``lc.match``, through the
+    timers of ``pi3_apply`` where it is a ``trace.Timed`` (a ``Pi3Runner``),
+    so that their ``sync_timing`` covers it too."""
+    timers = pi3_apply.timers if isinstance(pi3_apply, trace.Timed) else trace.Timers()
 
     def matcher(candidate_ids, query_id):
         if len(candidate_ids) + 1 > pad_to:
             raise ValueError(f"{len(candidate_ids)} candidates exceed pad_to={pad_to}")
-        idxs = list(candidate_ids) + [query_id]
-        imgs = torch.stack([
-            area_resize(torch.clamp((keyframes.img_dev(i).float() + 1.0) / 2.0, 0, 1),
-                        resize_hw) for i in idxs])
-        # padded slots repeat the query image; their outputs are ignored
-        n_real = imgs.shape[0]
-        if n_real < pad_to:
-            imgs = torch.cat([imgs, imgs[-1:].expand(pad_to - n_real, -1, -1, -1)])
-        points = pi3_apply(imgs[None])["points"][0]       # (pad_to, H, W, 3)
-        matcher.calls += 1
-        q = points[n_real - 1]
-        fracs = []
-        for s in range(0, pad_to - 1, chunk_size):
-            cand = points[s:min(s + chunk_size, pad_to - 1)]
-            _, valid = match_pi3(match_cfg, cand, q.expand_as(cand))
-            fracs.append(valid.float().mean(dim=1))
-        return torch.cat(fracs).cpu().tolist()[:len(candidate_ids)]
+        with trace.request(matcher.stream):
+            idxs = list(candidate_ids) + [query_id]
+            imgs = torch.stack([
+                area_resize(torch.clamp((keyframes.img_dev(i).float() + 1.0) / 2.0, 0, 1),
+                            resize_hw) for i in idxs])
+            # padded slots repeat the query image; their outputs are ignored
+            n_real = imgs.shape[0]
+            if n_real < pad_to:
+                imgs = torch.cat([imgs, imgs[-1:].expand(pad_to - n_real, -1, -1, -1)])
+            trace.count("pi3.frames", imgs.shape[0])
+            points = pi3_apply(imgs[None])["points"][0]       # (pad_to, H, W, 3)
+            matcher.calls += 1
+            q = points[n_real - 1]
+            fracs = []
+            with timers.device_span("lc.match", q.device):
+                for s in range(0, pad_to - 1, chunk_size):
+                    cand = points[s:min(s + chunk_size, pad_to - 1)]
+                    _, valid = match_pi3(match_cfg, cand, q.expand_as(cand))
+                    fracs.append(valid.float().mean(dim=1))
+                fracs = torch.cat(fracs)
+            return fracs.cpu().tolist()[:len(candidate_ids)]
 
     matcher.calls = 0
+    matcher.pi3 = pi3_apply
+    matcher.stream = trace.Stream()
     return matcher

@@ -1,0 +1,11 @@
+"""``peak_mem_gib``, read in the Pi3 cell, whose end-to-end metric besides set-up
+is the request tail, ``frame_ms_p90``."""
+from benchmark import harness
+
+_base = harness.load_metric("peak_mem_gib")
+LAYER = _base.LAYER
+UNIT = _base.UNIT
+MOVES = "frame_ms_p90"
+SOURCE = _base.SOURCE
+READS = _base.READS
+read = _base.read
